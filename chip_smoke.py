@@ -1,30 +1,51 @@
 #!/usr/bin/env python3
-"""Smoke run of hetpu_torch's main path on one NVIDIA GPU (Hopper, sm_90a).
+"""Smoke run of hetpu_torch's paths on one NVIDIA GPU (Hopper, sm_90a).
 
     python3 chip_smoke.py
 
-Phases, in order (each prints one line; any failure raises and the run
-exits non-zero without a result line):
+Phases, in order (each prints one JSON line; any failure raises and the
+run exits non-zero without a result line):
 
   1. device — needs CUDA; prints the card's name and power limit;
-  2. build  — compiles hetpu_torch/csrc/*.cu with nvcc into
-     build/hetpu_torch/ (at first use; rebuilt when the sources change);
+  2. build  — compiles hetpu_torch/csrc/*.cu with nvcc (one process per
+     source, in parallel) into build/hetpu_torch/ (at first use; rebuilt
+     when the sources change);
   3. NTT golden — the ``ntt`` kernel forward and inverse on the 14-prime
      N=2^14 basis of tests/golden/golden_n14.npz, bit-exact;
-  4. kernel vs plain — each of the four kernels against its plain PyTorch
+  4. kernel vs plain — each of the five kernels against its plain PyTorch
      version on the same CUDA inputs at the bench_n14 B=8 shapes, exact
      (torch.equal), with per-call times (CUDA events around 20
      back-to-back calls, median of 5 windows; a kernel shorter than its
-     wrapper's host time is host-bound in this measure);
-  5. slice golden — Session "test_dnum" (seed 0x33) on the card,
-     multiply_relin_rescale on golden_pins fused_a/fused_b = fused_out;
+     wrapper's host time is host-bound in this measure) and the least time
+     the card could take (bytes read once and written once over 3.35 TB/s);
+     K3 and K5 also on near-tie α columns built here for the bench_n14
+     tail plan (columns where an fma chain and a multiply-then-add chain
+     round α differently);
+  5. goldens — Session "test_dnum" (seed 0x33) on the card:
+     multiply_relin_rescale on golden_pins fused_a/fused_b = fused_out and
+     rotate by 1 = fused_rot; golden_n14 rs_n14 through Evaluator.rescale;
   6. main path — Session.create("bench_n14", seed 0x21) on the card,
      encrypt x and y at B=8, multiply_relin_rescale, decrypt: max error
      against x·y < 2e-3; the B=1 output equals the plain path on the CPU
-     with the same keys and inputs; every kernel was launched;
-  7. time — the op at B=8 over 200 iterations (CUDA events) → ops/s.
+     with the same keys and inputs; K1–K4 were launched;
+  7. time — that op at B=8 over 200 iterations (CUDA events) → ops/s;
+  8. inference path — Session.create("bench_n14", seed 0x21,
+     galois_steps 1..7): infer_step (8 diagonals, weight seed 7) on B=8
+     encrypted vectors, decrypt: max error against infer_reference < 5e-3;
+     the B=1 output equals the CPU plain path; K1–K4 launched.  Then the
+     same with centered_fbc=True (Session.from_wire on the same keys):
+     error < 5e-3, B=1 equal to the CPU plain path, K5 launched;
+  9. time — infer_step at B=8 in both FBC modes (ms per call,
+     vectors/s), rotate(ct, 1) at B=8, and multiply_relin_rescale with
+     centered_fbc=True beside the default;
+ 10. profile — torch.profiler over 5 infer_step calls in each mode: device
+     time per call by kernel (K1–K5, the plain PyTorch kernels by name),
+     device kernels per call, and the device's busy share of the wall time.
 
-The last line is {"ok": true, "device": {"platform": "gpu", ...}}.
+Launch counts are zeroed just before each path and read just after it;
+the ``kernels`` line reports each kernel's launches on the inference path
+(K5: on its centered run).  The last line is
+{"ok": true, "device": {"platform": "gpu", ...}}.
 Imports only hetpu_torch, torch and numpy (no JAX, no hetpu).
 """
 
@@ -41,13 +62,15 @@ import numpy as np
 import torch
 
 from hetpu_torch.core import cuda_lib, fused_ntt, ip_kernel
+from hetpu_torch.core.centered_fbc import CenteredFbcPlan
 from hetpu_torch.core.ciphertext import Ciphertext
 from hetpu_torch.core.context import Context
 from hetpu_torch.core.evaluator import Evaluator
 from hetpu_torch.core.modular import from_u32, shoup_companion, to_u32
-from hetpu_torch.core.ntt import (build_tables, ntt_fwd, ntt_fwd_plain,
-                                  ntt_inv, ntt_inv_plain)
+from hetpu_torch.core.ntt import (build_tables, ntt_fwd, ntt_fwd_mont,
+                                  ntt_fwd_plain, ntt_inv, ntt_inv_plain)
 from hetpu_torch.core.params import preset
+from hetpu_torch.offload import pipeline
 from hetpu_torch.session import Session
 
 GOLD = Path(__file__).resolve().parent / "tests" / "golden"
@@ -55,6 +78,10 @@ B = 8
 LEVEL = 8                      # bench_n14's top level: 9 data primes
 TIMED_RUNS = 20
 OP_ITERS = 200
+INFER_ITERS = 50
+PROFILE_ITERS = 5
+N_DIAGS, WSEED = 8, 7
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 
 
 def log(phase: str, **kw) -> None:
@@ -86,7 +113,16 @@ def residues(rng, shape, primes, device="cuda") -> torch.Tensor:
     return from_u32(x, device)
 
 
-def compare(name, kernel_fn, plain_fn) -> dict:
+def bound_ms(*tensors) -> float:
+    """Least time for the card to read every input once and write every
+    output once at the device-memory rate."""
+    return sum(t.numel() * t.element_size() for t in tensors) \
+        / HBM_BYTES_PER_S * 1e3
+
+
+def compare(name, kernel_fn, plain_fn, io) -> dict:
+    """Kernel vs plain version on the same inputs (exact), both timed;
+    ``io`` lists the kernel's input tensors, its output is added."""
     got = kernel_fn()
     want = plain_fn()
     torch.cuda.synchronize()
@@ -96,8 +132,78 @@ def compare(name, kernel_fn, plain_fn) -> dict:
                              f"({bad} elements)")
     err = (got.to(torch.int64) - want.to(torch.int64)).abs().max().item()
     return {"max_abs_err": float(err), "ms": median_ms(kernel_fn),
-            "plain_ms": median_ms(plain_fn)}
+            "plain_ms": median_ms(plain_fn), "bound_ms": bound_ms(*io, got),
+            "shape_in": list(io[0].shape), "shape_out": list(got.shape)}
 
+
+def plan_tensors(plan: CenteredFbcPlan) -> list:
+    names = ["q_src", "recip", "c", "c_shoup", "q_dst"]
+    names += ["p_mod", "p_mod_shoup"] if plan.has_alpha else []
+    names += ["extra", "extra_shoup"] if plan.has_extra else []
+    return [getattr(plan, n) for n in names]
+
+
+# ----------------------------------------------------------------------
+# near-tie α columns (numpy: an fma chain against a multiply-then-add chain)
+# ----------------------------------------------------------------------
+
+def _fma32(a, b, c):
+    """float32 a·b + c with one rounding (float64 product + TwoSum)."""
+    p = a.astype(np.float64) * b.astype(np.float64)
+    s = c.astype(np.float64)
+    hi = p + s
+    z = hi - p
+    lo = (p - (hi - z)) + (s - z)
+    f = hi.astype(np.float32)
+    g = np.nextafter(f, np.where(hi > f, np.float32(np.inf),
+                                 np.float32(-np.inf)).astype(np.float32))
+    tie = (f.astype(np.float64) + g.astype(np.float64)) == 2 * hi
+    return np.where(tie & (lo != 0) & ((lo > 0) == (g > f)), g, f)
+
+
+def _alphas(v, recip):
+    s = np.zeros(v.shape[1], np.float32)
+    m = np.zeros(v.shape[1], np.float32)
+    for i in range(v.shape[0]):
+        x = v[i].astype(np.int32).astype(np.float32)
+        s = _fma32(x, np.full_like(x, recip[i]), s)
+        m = (m + x * recip[i]).astype(np.float32)
+    return np.rint(s), np.rint(m)
+
+
+def near_tie_columns(primes, centered: bool, count: int, seed: int):
+    """``count`` columns of residues [S, count] whose α (over the values,
+    or over their centered forms) rounds differently in an fma chain and
+    in a multiply-then-add chain: the last value is solved so that the sum
+    lands on a half, then a window around it is searched."""
+    q = np.array(primes, dtype=np.int64)
+    recip = (1.0 / q.astype(np.float64)).astype(np.float32)
+    lo_v = -(q // 2) + 1 if centered else np.zeros_like(q)
+    hi_v = q // 2 if centered else q - 1
+    rng = np.random.default_rng(seed)
+    cols = []
+    while len(cols) < count:
+        head = np.array([rng.integers(lo_v[i], hi_v[i] + 1)
+                         for i in range(len(q) - 1)])
+        part = float((head / q[:-1]).sum())
+        ks = np.arange(np.ceil(part + lo_v[-1] / q[-1] - 0.5),
+                       np.floor(part + hi_v[-1] / q[-1] - 0.5) + 1)
+        if not len(ks):
+            continue
+        c = int(round((rng.choice(ks) + 0.5 - part) * q[-1]))
+        last = np.arange(max(c - 4096, lo_v[-1]), min(c + 4096, hi_v[-1]) + 1)
+        v = np.concatenate([np.repeat(head[:, None], len(last), 1),
+                            last[None]])
+        a, m = _alphas(v, recip)
+        hit = np.nonzero(a != m)[0]
+        if len(hit):
+            cols.append(v[:, hit[rng.integers(len(hit))]] % q)
+    return np.stack(cols, axis=1).astype(np.uint32)
+
+
+# ----------------------------------------------------------------------
+# phases
+# ----------------------------------------------------------------------
 
 def phase_device() -> tuple[str, str]:
     if not torch.cuda.is_available():
@@ -136,7 +242,7 @@ def phase_ntt_golden() -> None:
 
 
 def phase_kernels(rng) -> dict:
-    ctx = Context(preset("bench_n14"), "cuda")
+    ctx = Context(preset("bench_n14"))
     n = ctx.params.poly_degree
     tabs = ctx.tables(LEVEL)
     ks = ctx.keyswitch_plan(LEVEL)
@@ -147,24 +253,30 @@ def phase_kernels(rng) -> dict:
     out["ntt_inv"] = compare(
         "ntt inverse strip+extra",
         lambda: ntt_inv(x, tabs, strip_mont=True, extra=ks.dig_inv),
-        lambda: ntt_inv_plain(x, tabs, strip_mont=True, extra=ks.dig_inv))
+        lambda: ntt_inv_plain(x, tabs, strip_mont=True, extra=ks.dig_inv),
+        [x, tabs.inv_w, tabs.inv_w_shoup])
     out["ntt_fwd"] = compare(
         "ntt forward to_mont",
         lambda: ntt_fwd(x, tabs, to_mont=True),
-        lambda: ntt_fwd_plain(x, tabs, to_mont=True))
+        lambda: ntt_fwd_plain(x, tabs, to_mont=True),
+        [x, tabs.fwd_w, tabs.fwd_w_shoup])
 
-    lift = (ks.lift_w, ks.lift_ws, ks.lift_dig, ks.foreign_cat_tables)
+    ft = ks.foreign_cat_tables
+    lift = (ks.lift_w, ks.lift_ws, ks.lift_dig, ft)
     out["ntt_fwd_lifted"] = compare(
         "ntt_fwd_lifted",
         lambda: fused_ntt.ntt_fwd_lifted(x, *lift),
-        lambda: fused_ntt.ntt_fwd_lifted_plain(x, *lift))
+        lambda: fused_ntt.ntt_fwd_lifted_plain(x, *lift),
+        [x, ft.fwd_w, ft.fwd_w_shoup])
 
-    u = residues(rng, (B, 2, len(mdr.src_tables.primes), n),
-                 mdr.src_tables.primes)
+    src = mdr.src_tables.primes
+    u = residues(rng, (B, 2, len(src), n), src)
+    dt = mdr.dst_tables
     out["ntt_fwd_fbc"] = compare(
         "ntt_fwd_fbc",
-        lambda: fused_ntt.ntt_fwd_fbc(u, mdr.fbc, mdr.dst_tables),
-        lambda: fused_ntt.ntt_fwd_fbc_plain(u, mdr.fbc, mdr.dst_tables))
+        lambda: fused_ntt.ntt_fwd_fbc(u, mdr.fbc, dt),
+        lambda: fused_ntt.ntt_fwd_fbc_plain(u, mdr.fbc, dt),
+        [u, dt.fwd_w, dt.fwd_w_shoup])
 
     R = len(ks.basis_tables.primes)
     J = ks.num_digits
@@ -174,24 +286,71 @@ def phase_kernels(rng) -> dict:
     out["inner_product"] = compare(
         "inner_product",
         lambda: ip_kernel.inner_product(ext, k, k_sh, ks.q),
-        lambda: ip_kernel.inner_product_plain(ext, k, k_sh, ks.q))
+        lambda: ip_kernel.inner_product_plain(ext, k, k_sh, ks.q),
+        [ext, k, k_sh])
+
+    # K5 at the four bench_n14 B=8 shapes of the centered path
+    k5 = {"centered_fbc_tail": (ctx.centered_fbc_plan(mdr.fbc), (B, 2)),
+          "centered_fbc_lift0": (ctx.centered_lift_plan(LEVEL, 0), (B,)),
+          "centered_fbc_lift1": (ctx.centered_lift_plan(LEVEL, 1), (B,)),
+          "centered_fbc_moddown": (ctx.centered_fbc_plan(ks.moddown.fbc),
+                                   (B, 2))}
+    for name, (plan, lead) in k5.items():
+        y = residues(rng, (*lead, plan.S, n), to_u32(plan.q_src)[:, 0])
+        out[name] = compare(name, lambda: plan.apply(y),
+                            lambda: plan.apply_plain(y),
+                            [y, *plan_tensors(plan)])
+
+    # K3 and K5 on near-tie α columns of the tail plan, tiled to [B,2,S,N]
+    cols = near_tie_columns(src, False, 16, seed=1)
+    u_tie = from_u32(np.tile(cols, (B, 2, 1, n // cols.shape[1])), "cuda")
+    out["ntt_fwd_fbc_ties"] = compare(
+        "ntt_fwd_fbc near-tie columns",
+        lambda: fused_ntt.ntt_fwd_fbc(u_tie, mdr.fbc, dt),
+        lambda: fused_ntt.ntt_fwd_fbc_plain(u_tie, mdr.fbc, dt),
+        [u_tie, dt.fwd_w, dt.fwd_w_shoup])
+    plan = k5["centered_fbc_tail"][0]
+    cols = near_tie_columns(src, True, 16, seed=2)
+    y_tie = from_u32(np.tile(cols, (B, 2, 1, n // cols.shape[1])), "cuda")
+    out["centered_fbc_ties"] = compare(
+        "centered_fbc near-tie columns", lambda: plan.apply(y_tie),
+        lambda: plan.apply_plain(y_tie), [y_tie, *plan_tensors(plan)])
     for name, r in out.items():
         log("kernel_vs_plain", kernel=name, **r)
     return out
 
 
-def phase_slice_golden() -> None:
+def phase_goldens() -> None:
     z = np.load(GOLD / "golden_pins.npz")
-    sess = Session.create("test_dnum", seed=b"\x33" * 32, galois_steps=[1],
-                          device="cuda")
+    sess = Session.create("test_dnum", seed=b"\x33" * 32, galois_steps=[1])
     proto = sess.encrypt(0.0)
     a = proto.with_(data=from_u32(z["fused_a"], "cuda"))
     b = proto.with_(data=from_u32(z["fused_b"], "cuda"))
-    got = to_u32(sess.ev.multiply_relin_rescale(a, b, sess.rk).data)
+    out = sess.ev.multiply_relin_rescale(a, b, sess.rk)
+    got = to_u32(out.data)
     if not np.array_equal(got, z["fused_out"]):
         raise AssertionError(f"fused_out differs in "
                              f"{int((got != z['fused_out']).sum())} elements")
-    log("slice_golden", preset="test_dnum", exact=True)
+    rot = to_u32(sess.ev.rotate(out, 1, sess.gk).data)
+    if not np.array_equal(rot, z["fused_rot"]):
+        raise AssertionError(f"fused_rot differs in "
+                             f"{int((rot != z['fused_rot']).sum())} elements")
+
+    # rs_n14, fed as tests/test_golden.py:_check_rescale feeds it
+    z = np.load(GOLD / "golden_n14.npz")
+    ctx = Context(preset("bench_n14"))
+    if tuple(ctx.params.moduli[: LEVEL + 1]) != tuple(
+            int(p) for p in z["rs_n14_primes"]):
+        raise AssertionError("rs_n14 primes differ from bench_n14")
+    x_m = ntt_fwd_mont(from_u32(z["rs_n14_x"], "cuda"), ctx.tables(LEVEL))
+    ct = Ciphertext(data=x_m.unsqueeze(0), level=LEVEL, scale=1.0)
+    res = Evaluator(ctx).rescale(ct)
+    rs = to_u32(ntt_inv(res.data[0], ctx.tables(LEVEL - 1), strip_mont=True))
+    if not np.array_equal(rs, z["rs_n14_out"]):
+        raise AssertionError(f"rs_n14 differs in "
+                             f"{int((rs != z['rs_n14_out']).sum())} elements")
+    log("goldens", preset="test_dnum", fused_out=True, fused_rot=True,
+        rs_n14=True, exact=True)
 
 
 def stack(cts) -> Ciphertext:
@@ -201,8 +360,7 @@ def stack(cts) -> Ciphertext:
 def phase_main_path(rng):
     cuda_lib.reset_launches()
     t0 = time.perf_counter()
-    sess = Session.create("bench_n14", seed=b"\x21" * 32, galois_steps=[1],
-                          device="cuda")
+    sess = Session.create("bench_n14", seed=b"\x21" * 32, galois_steps=[1])
     x = rng.uniform(-1, 1, (B, sess.slots))
     y = rng.uniform(-1, 1, (B, sess.slots))
     a = stack([sess.encrypt(v) for v in x])
@@ -218,7 +376,8 @@ def phase_main_path(rng):
     err = float(np.abs(dec - x * y).max())
     if not err < 2e-3:
         raise AssertionError(f"bench_n14 decrypt error {err} >= 2e-3")
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k in ("ntt", "ntt_fwd_lifted", "ntt_fwd_fbc",
+                           "inner_product") if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
 
@@ -236,37 +395,171 @@ def phase_main_path(rng):
         raise AssertionError("B=1 output differs from row 0 of B=8")
     log("main_path", preset="bench_n14", batch=B, max_err=err,
         seconds=round(seconds, 3), launches=launches, cpu_plain_equal=True)
-    return sess, a, b, launches
+    return sess, a, b
 
 
-def phase_time(sess, a, b, smi: str) -> float:
-    ev, rk = sess.ev, sess.rk
-    for _ in range(5):
-        ev.multiply_relin_rescale(a, b, rk)
+def time_calls(fn, iters: int) -> float:
+    """ms per call: CUDA events around ``iters`` calls after 3 warm-ups."""
+    for _ in range(3):
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(OP_ITERS):
-        ev.multiply_relin_rescale(a, b, rk)
+    for _ in range(iters):
+        fn()
     end.record()
     end.synchronize()
-    ms = start.elapsed_time(end) / OP_ITERS
+    return start.elapsed_time(end) / iters
+
+
+def phase_time(sess, a, b, smi: str) -> None:
+    ms = time_calls(lambda: sess.ev.multiply_relin_rescale(a, b, sess.rk),
+                    OP_ITERS)
     ops = B * 1000.0 / ms
     log("time", op="multiply_relin_rescale", preset="bench_n14", batch=B,
         iters=OP_ITERS, ms_per_call=ms, ops_per_s=ops, card=smi)
-    return ops
 
 
+def _infer_run(sess, ct, x, diags, act, dec_sess, mode: str) -> dict:
+    """One inference path on the card, launches counted around it: the
+    batch through infer_step and decrypt, checked against
+    infer_reference; then its B=1 output against the CPU plain path."""
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    out = pipeline.infer_step(sess, ct, diags, act)
+    dec = dec_sess.decrypt(out).real
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.launches)
+    seconds = time.perf_counter() - t0
+    n = sess.ctx.params.poly_degree
+    if out.data.shape != (B, 2, LEVEL - 3 + 1, n) or not np.isfinite(dec).all():
+        raise AssertionError(f"{mode}: bad output {tuple(out.data.shape)}")
+    err = max(float(np.abs(dec[i] - pipeline.infer_reference(x[i], diags, act)
+                           ).max()) for i in range(B))
+    if not err < 5e-3:
+        raise AssertionError(f"{mode}: infer_step error {err} >= 5e-3")
+    ct1 = ct.with_(data=ct.data[0].contiguous())
+    out1 = pipeline.infer_step(sess, ct1, diags, act).data.cpu()
+    t1 = time.perf_counter()
+    cpu = Session.from_wire(sess.ctx.params, sess.rk, sess.gk, device="cpu",
+                            centered_fbc=sess.ev.centered_fbc)
+    ref1 = pipeline.infer_step(cpu, ct1.to("cpu"), diags, act).data
+    cpu_seconds = time.perf_counter() - t1
+    if not torch.equal(out1, ref1):
+        raise AssertionError(f"{mode}: B=1 output differs from the CPU "
+                             "plain path")
+    if not torch.equal(out1, out.data[0].cpu()):
+        raise AssertionError(f"{mode}: B=1 output differs from row 0 of B=8")
+    r = dict(mode=mode, preset="bench_n14", batch=B, n_diags=N_DIAGS,
+             wseed=WSEED, max_err=err, seconds=round(seconds, 3),
+             cpu_b1_seconds=round(cpu_seconds, 3), cpu_plain_equal=True,
+             launches=launches)
+    log("infer_path", **r)
+    return r
+
+
+def phase_infer(rng):
+    t0 = time.perf_counter()
+    sess = Session.create("bench_n14", seed=b"\x21" * 32,
+                          galois_steps=list(range(1, N_DIAGS)))
+    x = rng.uniform(-1, 1, (B, sess.slots))
+    ct = stack([sess.encrypt(v) for v in x])
+    diags, act = pipeline._infer_weights(sess.slots, N_DIAGS, WSEED)
+    log("infer_setup", seconds=round(time.perf_counter() - t0, 3),
+        galois_keys=len(sess.gk.elts))
+    default = _infer_run(sess, ct, x, diags, act, sess, "default")
+    missing = [k for k in ("ntt", "ntt_fwd_lifted", "ntt_fwd_fbc",
+                           "inner_product")
+               if default["launches"][k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the inference "
+                             f"path: {missing}")
+    cent = Session.from_wire(sess.ctx.params, sess.rk, sess.gk,
+                             centered_fbc=True)
+    centered = _infer_run(cent, ct, x, diags, act, sess, "centered_fbc")
+    if centered["launches"]["centered_fbc"] <= 0:
+        raise AssertionError("centered_fbc not launched on the centered "
+                             "inference path")
+    return sess, cent, ct, diags, act, default, centered
+
+
+def phase_infer_time(sess, cent, ct, diags, act, a, b, smi: str) -> None:
+    for mode, s in (("default", sess), ("centered_fbc", cent)):
+        ms = time_calls(lambda: pipeline.infer_step(s, ct, diags, act),
+                        INFER_ITERS)
+        log("time", op="infer_step", mode=mode, preset="bench_n14", batch=B,
+            n_diags=N_DIAGS, iters=INFER_ITERS, ms_per_call=ms,
+            vectors_per_s=B * 1000.0 / ms, card=smi)
+    ms = time_calls(lambda: sess.ev.rotate(ct, 1, sess.gk), OP_ITERS)
+    log("time", op="rotate", steps=1, preset="bench_n14", batch=B,
+        iters=OP_ITERS, ms_per_call=ms, ops_per_s=B * 1000.0 / ms, card=smi)
+    for mode, ev in (("default", Evaluator(cent.ctx)),
+                     ("centered_fbc", cent.ev)):
+        ms = time_calls(lambda: ev.multiply_relin_rescale(a, b, sess.rk),
+                        OP_ITERS)
+        log("time", op="multiply_relin_rescale", mode=mode,
+            preset="bench_n14", batch=B, iters=OP_ITERS, ms_per_call=ms,
+            ops_per_s=B * 1000.0 / ms, card=smi)
+
+
+# device kernel name fragment → kernel of this package (first match wins)
+KERNEL_OF = (("centered_fbc_kernel", "centered_fbc"),
+             ("lifted_kernel", "ntt_fwd_lifted"),
+             ("fbc_kernel", "ntt_fwd_fbc"), ("ip_kernel", "inner_product"),
+             ("ntt_kernel", "ntt"))
+
+
+def phase_profile(sess, cent, ct, diags, act, smi: str) -> None:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for mode, s in (("default", sess), ("centered_fbc", cent)):
+        for _ in range(3):
+            pipeline.infer_step(s, ct, diags, act)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(PROFILE_ITERS):
+                pipeline.infer_step(s, ct, diags, act)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        ours, plain, n_kernels = {}, {}, 0
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            us = getattr(e, "self_device_time_total", 0.0)
+            n_kernels += e.count
+            name = next((k for frag, k in KERNEL_OF if frag in e.key), None)
+            bucket = ours if name else plain
+            key = name or e.key[:60]
+            bucket[key] = bucket.get(key, 0.0) + us / PROFILE_ITERS
+        device_us = sum(ours.values()) + sum(plain.values())
+        top = dict(sorted(plain.items(), key=lambda kv: -kv[1])[:8])
+        log("profile", op="infer_step", mode=mode, preset="bench_n14",
+            batch=B, calls=PROFILE_ITERS,
+            wall_us_per_call=wall_us / PROFILE_ITERS,
+            device_us_per_call=device_us,
+            device_busy_share=device_us * PROFILE_ITERS / wall_us,
+            device_kernels_per_call=n_kernels / PROFILE_ITERS,
+            our_kernels_us=ours, plain_us=sum(plain.values()),
+            plain_top_us=top, card=smi)
+
+
+# name, source, replaced TPU kernel, timing cases (first = the row's times)
 KERNELS = [
     ("ntt", "hetpu_torch/csrc/ntt.cu", "hetpu/core/mxu_ntt.py:710",
      ("ntt_inv", "ntt_fwd")),
     ("ntt_fwd_lifted", "hetpu_torch/csrc/fused_ntt.cu",
      "hetpu/core/mxu_ntt.py:816", ("ntt_fwd_lifted",)),
     ("ntt_fwd_fbc", "hetpu_torch/csrc/fused_ntt.cu",
-     "hetpu/core/mxu_ntt.py:816", ("ntt_fwd_fbc",)),
+     "hetpu/core/mxu_ntt.py:816", ("ntt_fwd_fbc", "ntt_fwd_fbc_ties")),
     ("inner_product", "hetpu_torch/csrc/ip_kernel.cu",
      "hetpu/core/ip_kernel.py:75", ("inner_product",)),
+    ("centered_fbc", "hetpu_torch/csrc/centered_fbc.cu",
+     "hetpu/core/mxu_fbc.py:214",
+     ("centered_fbc_tail", "centered_fbc_lift0", "centered_fbc_lift1",
+      "centered_fbc_moddown", "centered_fbc_ties")),
 ]
 
 
@@ -276,19 +569,25 @@ def main() -> int:
     phase_build()
     phase_ntt_golden()
     timings = phase_kernels(rng)
-    phase_slice_golden()
-    sess, a, b, main_launches = phase_main_path(rng)
+    phase_goldens()
+    sess, a, b = phase_main_path(rng)
     phase_time(sess, a, b, smi)
+    isess, cent, ct, diags, act, default, centered = phase_infer(rng)
+    phase_infer_time(isess, cent, ct, diags, act, a, b, smi)
+    phase_profile(isess, cent, ct, diags, act, smi)
     rows = []
     for kname, src, replaces, cases in KERNELS:
-        # the ntt kernel reports its inverse case (the main path runs it
-        # twice per op); the forward case is in the kernel_vs_plain lines
+        # the ntt kernel reports its inverse case; the other cases are in
+        # the kernel_vs_plain lines
         r = timings[cases[0]]
+        path = centered if kname == "centered_fbc" else default
         rows.append({"name": kname, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": main_launches[kname],
+                     "replaces": replaces, "launches": path["launches"][kname],
                      "max_abs_err": max(timings[c]["max_abs_err"]
                                         for c in cases),
-                     "ms": r["ms"], "plain_ms": r["plain_ms"]})
+                     "ms": r["ms"], "plain_ms": r["plain_ms"],
+                     "bound_ms": r["bound_ms"], "bound_by": "bytes",
+                     "library_ms": None})
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

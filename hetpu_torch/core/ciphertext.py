@@ -26,6 +26,10 @@ class Ciphertext:
     def num_parts(self) -> int:
         return self.data.shape[-3]
 
+    @property
+    def batch_shape(self) -> tuple[int, ...]:
+        return tuple(self.data.shape[:-3])
+
     def with_(self, **kw) -> "Ciphertext":
         return replace(self, **kw)
 
@@ -39,3 +43,15 @@ class Plaintext:
     shoup: torch.Tensor                  # same shape: floor(data·2^32/q)
     level: int = 0
     scale: float = 1.0
+
+
+def scales_close(a: float, b: float, rel: float = 1e-6) -> bool:
+    return abs(a - b) <= rel * max(abs(a), abs(b))
+
+
+def check_add_compat(a, b, op: str = "add") -> None:
+    if a.level != b.level:
+        raise ValueError(f"{op}: level mismatch {a.level} vs {b.level} "
+                         "(Session.reach_level aligns them)")
+    if not scales_close(a.scale, b.scale):
+        raise ValueError(f"{op}: scale mismatch {a.scale} vs {b.scale}")

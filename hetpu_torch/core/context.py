@@ -9,6 +9,9 @@ the flat transform.
 
 Level convention: ``level = ℓ`` means data primes ``q_0..q_ℓ`` are active
 (ℓ+1 limbs).  A fresh ciphertext is at ``level = num_levels-1``.
+
+The device defaults to ``"cuda"``; without a card that raises (there is
+no fallback): pass ``device="cpu"`` for the plain PyTorch paths.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from . import nt, rns
+from . import centered_fbc, nt, rns
 from .modular import from_u32, mont_constants, shoup_precompute
 from .ntt import NttTables, build_tables
 from .params import HeParams
@@ -26,6 +29,20 @@ from .params import HeParams
 
 def _col(xs, dt=np.uint32) -> np.ndarray:
     return np.array(xs, dtype=dt).reshape(-1, 1)
+
+
+@dataclass(frozen=True)
+class RescalePlan:
+    """Constants for dividing-and-rounding a ciphertext by its last active
+    prime q_ℓ (CKKS rescale).  Shapes broadcast against [..., ℓ(+1), N]."""
+
+    src_tables: NttTables        # the dropped prime (1 limb)
+    dst_tables: NttTables        # remaining primes (ℓ limbs)
+    half: torch.Tensor           # [1,1]  q_src >> 1
+    half_mod: torch.Tensor       # [ℓ,1]  (q_src>>1) mod q_i
+    mu: torch.Tensor             # [ℓ,1]  floor(2^32/q_i) (Barrett parity)
+    src_inv: torch.Tensor        # [ℓ,1]  q_src^{-1} mod q_i
+    src_inv_shoup: torch.Tensor
 
 
 @dataclass(frozen=True)
@@ -84,9 +101,12 @@ class Context:
     """All precomputed state for a parameter set on ``device``.  Per-level
     views and plans are built on first use and kept on the instance."""
 
-    def __init__(self, params: HeParams, device="cpu"):
+    def __init__(self, params: HeParams, device="cuda"):
         self.params = params
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Context: no CUDA device; pass device='cpu' "
+                               "for the plain PyTorch paths")
         n = params.poly_degree
         self.all_primes: tuple[int, ...] = params.moduli + params.special_moduli
         self.num_data = len(params.moduli)
@@ -121,6 +141,28 @@ class Context:
 
     def keyswitch_plan(self, level: int) -> KeySwitchPlan:
         return self._cached(("ks", level), lambda: self._keyswitch_plan(level))
+
+    def rescale_plan(self, level: int) -> RescalePlan:
+        """Divide-and-round by q_level, landing on level-1."""
+        if level < 1:
+            raise ValueError("cannot rescale below level 0")
+        return self._cached(("rs", level), lambda: self._make_rescale(
+            src_idx=level, dst_idx=np.arange(level),
+            src_prime=self.params.moduli[level],
+            dst_primes=self.params.moduli[: level]))
+
+    def centered_lift_plan(self, level: int,
+                           di: int) -> centered_fbc.CenteredFbcPlan:
+        """Centered digit lift of digit ``di`` at ``level``."""
+        return self._cached(("clift", level, di), lambda: centered_fbc
+                            .lift_plan(self.keyswitch_plan(level), di))
+
+    def centered_fbc_plan(self, fbc: rns.FbcPlan
+                          ) -> centered_fbc.CenteredFbcPlan:
+        """Centered form of one of this context's FBC plans (the memo
+        keeps ``fbc`` alive, so its id stays its own)."""
+        return self._cached(("cfbc", id(fbc)), lambda: (
+            fbc, centered_fbc.fbc_plan(fbc)))[1]
 
     def moddown_rescale_plan(self, level: int) -> ModDownRescalePlan:
         return self._cached(("mdr", level),
@@ -213,6 +255,20 @@ class Context:
             lift_ws=self._t(lift_ws),
             lift_dig=torch.from_numpy(lift_dig).to(self.device),
             moddown=moddown,
+        )
+
+    def _make_rescale(self, src_idx, dst_idx, src_prime,
+                      dst_primes) -> RescalePlan:
+        half = src_prime >> 1
+        src_inv = _col([nt.modinv(src_prime % q, q) for q in dst_primes])
+        return RescalePlan(
+            src_tables=self.tables_full.slice(np.array([src_idx])),
+            dst_tables=self.tables_full.slice(dst_idx),
+            half=self._t(_col([half])),
+            half_mod=self._t(_col([half % q for q in dst_primes])),
+            mu=self._t(_col([(1 << 32) // q for q in dst_primes])),
+            src_inv=self._t(src_inv),
+            src_inv_shoup=self._t(shoup_precompute(src_inv, _col(dst_primes))),
         )
 
     def _moddown_rescale_plan(self, level: int) -> ModDownRescalePlan:

@@ -1,16 +1,18 @@
 """Build, load and launch the package's hand-written CUDA kernels.
 
 The sources in ``hetpu_torch/csrc/*.cu`` are compiled by ``nvcc`` for
-``sm_90a`` (Hopper) into ONE shared library with a plain C interface and
-loaded with ``ctypes`` — no PyTorch headers, so a build takes seconds.
-The build happens at first use, never at import, into
-``build/hetpu_torch/`` at the repository root; the library's file name
-carries a hash of the sources and flags, so an edited source rebuilds.
+``sm_90a`` (Hopper), one ``nvcc`` per source, all started together, and
+linked into ONE shared library with a plain C interface, loaded with
+``ctypes`` — no PyTorch headers, so a build takes seconds.  The build
+happens at first use, never at import, into ``build/hetpu_torch/`` at the
+repository root; the library's file name carries a hash of the sources
+and flags, so an edited source rebuilds.
 
-Each kernel wrapper (``ntt.py``, ``fused_ntt.py``, ``ip_kernel.py``)
-checks its tensors, allocates outputs with ``torch.empty``, launches on
-``torch.cuda.current_stream()``, raises on a non-zero
-``cudaGetLastError()`` and adds one to its entry in :data:`launches`.
+Each kernel wrapper (``ntt.py``, ``fused_ntt.py``, ``ip_kernel.py``,
+``centered_fbc.py``) checks its tensors, allocates outputs with
+``torch.empty``, launches on ``torch.cuda.current_stream()``, raises on a
+non-zero ``cudaGetLastError()`` and adds one to its entry in
+:data:`launches`.
 """
 
 from __future__ import annotations
@@ -27,13 +29,13 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "hetpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
-              "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "--fmad=false", "-Xptxas", "-v")
 
 # kernel name → launches made by its wrapper (one per kernel launch)
 launches = {"ntt": 0, "ntt_fwd_lifted": 0, "ntt_fwd_fbc": 0,
-             "inner_product": 0}
+             "inner_product": 0, "centered_fbc": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -51,6 +53,10 @@ _SIGNATURES = {
                           _P, _P, _P, _P),
     # ext, k, ks, q, out, B, J, R, n, stream
     "hetpu_inner_product": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # y, out, rows, S, F, n, q_src, recip, c, cs, pm, pms, ex, exs, q_dst,
+    # stream
+    "hetpu_centered_fbc": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                           _P, _P, _P, _P),
 }
 
 
@@ -86,20 +92,43 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into the shared library unless it exists.
-    nvcc's output (``-Xptxas -v``: registers, shared memory, spills) is
-    kept beside the library as ``<name>.log``."""
+    """Compile csrc/*.cu into the shared library unless it exists: one
+    ``nvcc -c`` per source, run in parallel, then one link.  nvcc's output
+    (``-Xptxas -v``: registers, shared memory, spills) is kept beside the
+    library as ``<name>.log``."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{so.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(_sources(), objs)]
+    log, failed = [], []
+    for src, proc in zip(_sources(), procs):
+        out, _ = proc.communicate()
+        log.append(f"== {src.name} (rc {proc.returncode})\n{out}")
+        if proc.returncode != 0:
+            failed.append(src.name)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
+    if not failed:
+        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        log.append(f"== link (rc {link.returncode})\n{link.stdout}"
+                   f"{link.stderr}")
+        if link.returncode != 0:
+            failed.append("link")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    so.with_suffix(".log").write_text("".join(log))
+    if failed:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n"
+                           + "".join(log))
     os.replace(tmp, so)
     return so
 

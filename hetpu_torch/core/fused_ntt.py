@@ -14,8 +14,9 @@ through device memory:
   * ``ntt_fwd_fbc`` — kernel ``ntt_fwd_fbc``: centered fast base
     conversion (f32 α, see :mod:`.rns`), then the forward NTT ×R.
 
-A CPU tensor takes the plain twin (``*_plain``); a CUDA tensor launches
-the kernel or raises.
+Every wrapper checks dtype and contiguity on either device; then a CPU
+tensor takes the plain twin (``*_plain``) and a CUDA tensor launches the
+kernel or raises.
 """
 
 from __future__ import annotations
@@ -65,11 +66,11 @@ def ntt_fwd_lifted(y, lift_w, lift_ws, lift_dig, t: NttTables, *,
     basis: out[..., f, :] = ntt_fwd(Σ_i y[..., dig_f·α+i, :]·lift_w[f, i])
     row f.  y: [..., Ly, N] standard-form planes (the decompose INTT
     output); lift_w/lift_ws [F, α]; lift_dig int32 [F]."""
+    cuda_lib.check_i32("ntt_fwd_lifted", y, lift_w, lift_ws, lift_dig, t.q)
     if not cuda_lib.on_card(y, lift_w, lift_ws, lift_dig, t.q):
         return ntt_fwd_lifted_plain(y, lift_w, lift_ws, lift_dig, t,
                                     to_mont=to_mont)
     F, A = lift_w.shape
-    cuda_lib.check_i32("ntt_fwd_lifted", y, lift_w, lift_ws, lift_dig, t.q)
     if len(t.primes) != F or lift_ws.shape != lift_w.shape \
             or lift_dig.shape != (F,):
         raise ValueError("ntt_fwd_lifted: lift_w/lift_ws [F, A], lift_dig "
@@ -106,12 +107,12 @@ def ntt_fwd_fbc(u, fbc: rns.FbcPlan, t: NttTables, *,
     mod-down / fused-rescale tail): equal to
     ``ntt_fwd(fbc_apply(u, fbc, correct=True, premul=False), t, to_mont)``.
     u: int32 [..., A, N] source planes already carrying P̂⁻¹."""
+    cuda_lib.check_i32("ntt_fwd_fbc", u, fbc.phat_mod_r, fbc.phat_shoup,
+                       fbc.ptot_mod_r, fbc.ptot_shoup, t.q)
     if not cuda_lib.on_card(u, fbc.r, t.q):
         return ntt_fwd_fbc_plain(u, fbc, t, to_mont=to_mont)
     A = u.shape[-2]
     F = len(t.primes)
-    cuda_lib.check_i32("ntt_fwd_fbc", u, fbc.phat_mod_r, fbc.phat_shoup,
-                       fbc.ptot_mod_r, fbc.ptot_shoup, t.q)
     if fbc.phat_mod_r.shape != (A, F) or fbc.p_recip.dtype != torch.float32:
         raise ValueError(f"ntt_fwd_fbc: plan converts "
                          f"{tuple(fbc.phat_mod_r.shape)}, input has {A} "

@@ -62,7 +62,13 @@ def conjugation_elt(n: int) -> int:
     return 2 * n - 1
 
 
+@lru_cache(maxsize=None)
+def _perm_tensor(n: int, galois_elt: int, device: torch.device):
+    return torch.from_numpy(permutation(n, galois_elt).astype(np.int64)
+                            ).to(device)
+
+
 def apply(data: torch.Tensor, n: int, galois_elt: int) -> torch.Tensor:
-    """Gather along the last axis; works on any [..., N] tensor."""
-    perm = torch.from_numpy(permutation(n, galois_elt).astype(np.int64))
-    return data.index_select(-1, perm.to(data.device))
+    """Gather along the last axis; works on any [..., N] tensor (leading
+    batch and digit dimensions pass through)."""
+    return data.index_select(-1, _perm_tensor(n, galois_elt, data.device))

@@ -32,9 +32,9 @@ def inner_product_plain(ext, k, ks, q):
 def inner_product(ext, k, ks, q):
     """Key-switch MAC (shapes as :func:`inner_product_plain`); the
     ``inner_product`` kernel on a CUDA tensor."""
+    cuda_lib.check_i32("inner_product", ext, k, ks, q)
     if not cuda_lib.on_card(ext, k, ks, q):
         return inner_product_plain(ext, k, ks, q)
-    cuda_lib.check_i32("inner_product", ext, k, ks, q)
     if ext.dim() < 3:
         raise ValueError("inner_product: ext must be [..., J, R, N]")
     J, R, N = ext.shape[-3:]

@@ -57,18 +57,43 @@ class KSwitchKey:
 
 @dataclass(frozen=True)
 class RelinKeys:
-    """``key`` switches s² → s (keys for s³, s⁴, … are not ported yet)."""
+    """``key`` switches s² → s; ``more`` holds keys for s³, s⁴, … so that
+    k-part ciphertexts can be relinearized."""
 
     key: KSwitchKey
+    more: tuple = ()                     # tuple[KSwitchKey] for s^3, s^4, …
+
+    def key_for_power(self, p: int) -> KSwitchKey:
+        if p == 2:
+            return self.key
+        if 3 <= p < 3 + len(self.more):
+            return self.more[p - 3]
+        raise KeyError(
+            f"no relin key for s^{p}; create_relin_keys(count={p - 1})")
 
     def to(self, device) -> "RelinKeys":
-        return RelinKeys(key=self.key.to(device))
+        return RelinKeys(key=self.key.to(device),
+                         more=tuple(k.to(device) for k in self.more))
 
 
 @dataclass(frozen=True)
 class GaloisKeys:
     elts: tuple = ()
     keys: tuple = ()                     # tuple[KSwitchKey] parallel to elts
+
+    def key_for(self, elt: int) -> KSwitchKey:
+        try:
+            return self.keys[self.elts.index(elt)]
+        except ValueError:
+            raise KeyError(f"no galois key for element {elt}; "
+                           f"have {self.elts}") from None
+
+    def has(self, elt: int) -> bool:
+        return elt in self.elts
+
+    def to(self, device) -> "GaloisKeys":
+        return GaloisKeys(elts=self.elts,
+                          keys=tuple(k.to(device) for k in self.keys))
 
 
 class KeyGenerator:
@@ -154,11 +179,17 @@ class KeyGenerator:
         k = torch.stack([b, a], dim=1)
         return KSwitchKey(data=k, shoup=shoup_companion(k, tabs.q))
 
-    def create_relin_keys(self) -> RelinKeys:
-        """The s² → s key."""
+    def create_relin_keys(self, count: int = 1) -> RelinKeys:
+        """Keys for s² → s and, with ``count`` > 1, s³ … s^{count+1}, drawn
+        in that order."""
         s = self.secret.data
-        s2 = mont_mul(s, s, self.ctx.tables_full.q, self._r_inv)
-        return RelinKeys(key=self._kswitch_key(s2))
+        q = self.ctx.tables_full.q
+        s_pow = mont_mul(s, s, q, self._r_inv)
+        keys = [self._kswitch_key(s_pow)]
+        for _ in range(count - 1):
+            s_pow = mont_mul(s_pow, s, q, self._r_inv)
+            keys.append(self._kswitch_key(s_pow))
+        return RelinKeys(key=keys[0], more=tuple(keys[1:]))
 
     def create_galois_keys(self, steps=None) -> GaloisKeys:
         """Keys for slot rotations.  Default: ± all powers of two plus

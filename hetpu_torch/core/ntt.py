@@ -104,7 +104,7 @@ def host_tables(n: int, primes: tuple[int, ...]) -> dict[str, np.ndarray]:
     return out
 
 
-def build_tables(n: int, primes, device="cpu") -> NttTables:
+def build_tables(n: int, primes, device) -> NttTables:
     primes = tuple(int(p) for p in primes)
     h = host_tables(n, primes)
     return NttTables(n=n, primes=primes,
@@ -223,6 +223,7 @@ def ntt_fwd(a: torch.Tensor, t: NttTables, *,
             to_mont: bool = False) -> torch.Tensor:
     """Forward NTT (see :func:`ntt_fwd_plain`); the ``ntt`` kernel on a
     CUDA tensor."""
+    cuda_lib.check_i32("ntt", a)
     if cuda_lib.on_card(a):
         return _ntt_cuda(a, t, inverse=False, c1=t.r if to_mont else None,
                          c2=None)
@@ -239,6 +240,7 @@ def ntt_inv(a: torch.Tensor, t: NttTables, *, strip_mont: bool = False,
             extra=None) -> torch.Tensor:
     """Inverse NTT (see :func:`ntt_inv_plain`); the ``ntt`` kernel on a
     CUDA tensor."""
+    cuda_lib.check_i32("ntt", a)
     if cuda_lib.on_card(a):
         c1, c2 = _inv_constants(t, strip_mont, extra)
         return _ntt_cuda(a, t, inverse=True, c1=c1, c2=c2)

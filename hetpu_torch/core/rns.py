@@ -6,10 +6,14 @@ CENTERED values between bases with a float32 α-correction (a misround
 shifts by ±P — absorbed as bounded noise at every use site).  The
 two-float precise α of the reference (used by BFV) is not ported yet.
 
-Bit-exactness with the reference hinges on α = round(Σ_i f32(y_i)·f32(1/p_i)):
-the sum runs over i = 0…A−1 in that order as separate f32 multiplies and
-adds (never a fused multiply-add, never a tree reduction), and rounds
-half to even.
+Bit-exactness with the reference hinges on α = round(Σ_i f32(y_i)·f32(1/p_i)).
+The reference computes it as ``jnp.sum(y.astype(f32) * recip, axis=-2)``
+inside ``jax.jit``, which XLA compiles into one chain of fused
+multiply-adds: s ← fma(f32(y_i), f32(1/p_i), s) for i = 0…A−1 from s = 0,
+one rounding per step; then α rounds half to even.  :func:`fma_f32`
+reproduces that single rounding exactly (a multiply and an add rounded
+separately would flip α on rare near-half columns and shift the
+coefficient by P).
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ class FbcPlan:
     r: torch.Tensor               # target primes            [Lr, 1]
 
 
-def make_fbc(src_primes, dst_primes, device="cpu") -> FbcPlan:
+def make_fbc(src_primes, dst_primes, device) -> FbcPlan:
     P = 1
     for p in src_primes:
         P *= int(p)
@@ -69,15 +73,34 @@ def make_fbc(src_primes, dst_primes, device="cpu") -> FbcPlan:
     )
 
 
-def fbc_alpha(y: torch.Tensor, plan: FbcPlan) -> torch.Tensor:
-    """α = round_half_even(Σ_i f32(y_i)·f32(1/p_i)), i ascending, as int64
-    [..., 1, N].  One f32 multiply and one f32 add per term, each its own
-    rounding step (the CUDA kernel uses __fmul_rn/__fadd_rn in the same
-    order)."""
-    al = None
-    for i in range(plan.p.shape[0]):
-        t = y[..., i:i + 1, :].to(torch.float32) * plan.p_recip[i, 0]
-        al = t if al is None else al + t
+def fma_f32(a: torch.Tensor, b: torch.Tensor,
+            c: torch.Tensor) -> torch.Tensor:
+    """float32 a·b + c rounded ONCE to nearest even, as a fused
+    multiply-add rounds it (``__fmaf_rn`` on the card).  The product of
+    two float32 values is exact in float64 (24 × 24 bits); its sum with c
+    is split by TwoSum into hi + lo exactly.  Casting hi to float32 rounds
+    correctly unless hi lies exactly halfway between two float32 values
+    while lo ≠ 0: then the exact sum lies on lo's side of that tie."""
+    p = a.to(torch.float64) * b.to(torch.float64)
+    s = c.to(torch.float64)
+    hi = p + s
+    z = hi - p
+    lo = (p - (hi - z)) + (s - z)
+    f = hi.to(torch.float32)
+    f64 = f.to(torch.float64)
+    inf = torch.tensor(float("inf"), dtype=torch.float32, device=f.device)
+    g = torch.nextafter(f, torch.where(hi > f64, inf, -inf))
+    tie = (f64 + g.to(torch.float64)) == 2 * hi
+    return torch.where(tie & (lo != 0) & ((lo > 0) == (g > f)), g, f)
+
+
+def alpha_f32(v: torch.Tensor, recip: torch.Tensor) -> torch.Tensor:
+    """round_half_even(fma chain of f32(v_i)·recip_i over i ascending)
+    as int64 [..., 1, N]; v int32 [..., S, N] (signed values welcome),
+    recip float32 [S, 1]."""
+    al = torch.zeros_like(v[..., :1, :], dtype=torch.float32)
+    for i in range(v.shape[-2]):
+        al = fma_f32(v[..., i:i + 1, :].to(torch.float32), recip[i, 0], al)
     return torch.round(al).to(torch.int64)
 
 
@@ -90,7 +113,7 @@ def fbc_apply(x: torch.Tensor, plan: FbcPlan, *, correct: bool = True,
     y = shoup_mul(x, plan.inv_punit, plan.inv_punit_shoup,
                   plan.p) if premul else x
     if correct:
-        alpha = fbc_alpha(y, plan)
+        alpha = alpha_f32(y, plan.p_recip)
     outs = []
     for j in range(plan.r.shape[0]):
         r = plan.r[j:j + 1]

@@ -17,10 +17,12 @@
 // with the optional x R epilogue.  The lift's short last digit has zero
 // weights past the active primes; its source index is clamped to the last
 // input plane exactly as the reference does (mxu_ntt.py:942-944), so no
-// read leaves the input.  alpha is summed for i = 0..A-1 with __fmul_rn and
-// __fadd_rn (no fused multiply-add) and rounded with rintf (half to even),
-// the reference's f32 arithmetic step for step; a different order or an
-// FMA would flip rare near-half roundings and shift a coefficient by P.
+// read leaves the input.  alpha is the chain of fused multiply-adds
+// al = __fmaf_rn(f32(u_i), recip_i, al) for i = 0..A-1 from al = 0, rounded
+// with rintf (half to even): the reference's jitted jnp.sum compiles to
+// exactly this chain.  A multiply and an add rounded separately, or another
+// order, would flip rare near-half roundings and shift a coefficient by P.
+// The explicit intrinsic fuses whatever --fmad says.
 //
 // Bound on the card: the NTT stages as in ntt.cu; the prologue adds A input
 // planes read per output plane (the digit's planes are re-read by each of
@@ -90,8 +92,7 @@ __global__ void fbc_kernel(const uint32_t* __restrict__ u,
       acc = hetpu::mod_add(
           acc, hetpu::shoup_mul(v, phat[i * F + f], phat_shoup[i * F + f], qf),
           qf);
-      al = __fadd_rn(al, __fmul_rn(__int2float_rn(static_cast<int>(v)),
-                                   recip[i]));
+      al = __fmaf_rn(__int2float_rn(static_cast<int>(v)), recip[i], al);
     }
     const uint32_t alpha = static_cast<uint32_t>(static_cast<int>(rintf(al)));
     s[k] = hetpu::mod_sub(acc, hetpu::shoup_mul(alpha, pm, pms, qf), qf);

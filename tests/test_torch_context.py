@@ -58,7 +58,7 @@ def _assert_tables_equal(got: NttTables, want, *, arrays: bool):
 def test_flat_tables_equal(name):
     p = preset(name)
     primes = p.moduli + p.special_moduli
-    _assert_tables_equal(build_tables(p.poly_degree, primes),
+    _assert_tables_equal(build_tables(p.poly_degree, primes, "cpu"),
                          ref_build_tables(p.poly_degree, primes), arrays=True)
 
 
@@ -89,7 +89,7 @@ def _assert_plan_equal(got, want, path=""):
 
 @pytest.fixture(scope="module")
 def contexts():
-    return {name: (Context(preset(name)), RefContext(ref_preset(name)))
+    return {name: (Context(preset(name), "cpu"), RefContext(ref_preset(name)))
             for name in ("test_dnum", "bench_n14")}
 
 

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from hetpu_torch.core import cuda_lib, fused_ntt, ip_kernel
+from hetpu_torch.core import centered_fbc, cuda_lib, fused_ntt, ip_kernel
 from hetpu_torch.core.context import Context
 from hetpu_torch.core.evaluator import Evaluator
 from hetpu_torch.core.modular import from_u32, shoup_companion, to_u32
@@ -22,6 +22,7 @@ from hetpu_torch.core.nt import gen_primes
 from hetpu_torch.core.ntt import (build_tables, ntt_fwd, ntt_fwd_plain,
                                   ntt_inv, ntt_inv_plain)
 from hetpu_torch.core.params import ckks_params, preset
+from hetpu_torch.offload import pipeline
 from hetpu_torch.session import Session
 
 pytestmark = pytest.mark.cuda
@@ -133,7 +134,10 @@ def test_slice_golden_and_counters(dev):
     b = proto.with_(data=from_u32(z["fused_b"], dev))
     out = sess.ev.multiply_relin_rescale(a, b, sess.rk)
     np.testing.assert_array_equal(to_u32(out.data), z["fused_out"])
-    assert all(v > 0 for v in cuda_lib.launches.values()), cuda_lib.launches
+    counts = cuda_lib.launches
+    assert all(counts[k] > 0 for k in ("ntt", "ntt_fwd_lifted", "ntt_fwd_fbc",
+                                       "inner_product")), counts
+    assert counts["centered_fbc"] == 0, counts       # default FBC path
 
 
 def test_bench_n14_b1_equals_cpu(dev):
@@ -144,6 +148,103 @@ def test_bench_n14_b1_equals_cpu(dev):
     a, b = sess.encrypt(x), sess.encrypt(y)
     out = sess.ev.multiply_relin_rescale(a, b, sess.rk)
     assert np.abs(sess.decrypt(out).real - x * y).max() < 2e-3
-    ref = Evaluator(Context(preset("bench_n14"))).multiply_relin_rescale(
+    ref = Evaluator(Context(preset("bench_n14"), "cpu")).multiply_relin_rescale(
         a.to("cpu"), b.to("cpu"), sess.rk.to("cpu"))
+    assert torch.equal(out.data.cpu(), ref.data)
+
+
+# ----------------------------------------------------------------------
+# centered_fbc (K5), the α near-ties (K3, K5), rotation and inference
+# ----------------------------------------------------------------------
+
+# test_dnum fused-tail sources (q_7 + 3 specials): columns where an fma
+# chain and a multiply-then-add chain round α differently
+# (tests/test_torch_alpha.py checks them against hetpu)
+TIES_DNUM = [[508039856, 1099080352, 1621637186, 1631625018],
+             [37419502, 309566830, 1767178876, 1069488476],
+             [454505166, 586600971, 1777398114, 2095414402],
+             [92054122, 59180148, 1858753445, 1119026592]]
+TIES_DNUM_CENTERED = [[362438493, 1635477856, 1308414874, 1699663812],
+                      [635511566, 1792818991, 214954608, 2089613811],
+                      [832047190, 1506075342, 338069672, 1860156527],
+                      [267531152, 2002721513, 383764152, 299512774]]
+
+
+@pytest.fixture(scope="module")
+def n14(dev):
+    return Context(preset("bench_n14"), dev)
+
+
+@pytest.mark.parametrize("kind", ["lift0", "lift1", "moddown", "tail",
+                                  "tail_extra"])
+def test_centered_fbc_kernel(dev, n14, kind):
+    """The bench_n14 B=8 shapes at level 8: lift [8,5,N]→[8,9,N] and
+    [8,4,N]→[8,10,N], mod-down [8,2,5,N]→[8,2,9,N], tail
+    [8,2,6,N]→[8,2,8,N]."""
+    lvl = 8
+    if kind.startswith("lift"):
+        plan, lead = n14.centered_lift_plan(lvl, int(kind[-1])), (8,)
+    elif kind == "moddown":
+        plan = n14.centered_fbc_plan(n14.keyswitch_plan(lvl).moddown.fbc)
+        lead = (8, 2)
+    else:
+        fbc = n14.moddown_rescale_plan(lvl).fbc
+        plan = (n14.centered_fbc_plan(fbc) if kind == "tail" else
+                centered_fbc.fbc_plan(fbc, extra=np.arange(5, 5 + 8)))
+        lead = (8, 2)
+    y = _res(np.random.default_rng(len(kind)), (*lead, plan.S, 16384),
+             to_u32(plan.q_src)[:, 0], dev)
+    before = cuda_lib.launches["centered_fbc"]
+    got = plan.apply(y)
+    assert cuda_lib.launches["centered_fbc"] == before + 1
+    assert got.shape == (*lead, plan.F, 16384)
+    assert torch.equal(got, plan.apply_plain(y))
+
+
+def test_alpha_ties_on_the_card(dev):
+    """K3 and K5 round α on the near-tie columns as their plain versions
+    (the fma chain of hetpu's jitted α)."""
+    ctx = Context(preset("test_dnum"), dev)
+    mdr = ctx.moddown_rescale_plan(ctx.num_data - 1)
+    cols = lambda t: np.tile(np.array(t, dtype=np.uint32).T, (1, 256))[None]
+    u = from_u32(cols(TIES_DNUM), dev)
+    assert torch.equal(fused_ntt.ntt_fwd_fbc(u, mdr.fbc, mdr.dst_tables),
+                       fused_ntt.ntt_fwd_fbc_plain(u, mdr.fbc,
+                                                   mdr.dst_tables))
+    plan = ctx.centered_fbc_plan(mdr.fbc)
+    y = from_u32(cols(TIES_DNUM_CENTERED), dev)
+    assert torch.equal(plan.apply(y), plan.apply_plain(y))
+
+
+def test_fused_rot_golden_on_the_card(dev):
+    z = np.load(GOLD / "golden_pins.npz")
+    sess = Session.create("test_dnum", seed=b"\x33" * 32, galois_steps=[1],
+                          device=dev)
+    proto = sess.encrypt(0.0)
+    a = proto.with_(data=from_u32(z["fused_a"], dev))
+    b = proto.with_(data=from_u32(z["fused_b"], dev))
+    out = sess.ev.multiply_relin_rescale(a, b, sess.rk)
+    rot = sess.ev.rotate(out, 1, sess.gk)
+    np.testing.assert_array_equal(to_u32(rot.data), z["fused_rot"])
+
+
+@pytest.mark.parametrize("centered", [False, True])
+def test_infer_step_card_equals_cpu(dev, centered):
+    sess = Session.create("test_dnum", seed=b"\x37" * 32,
+                          galois_steps=[1, 2, 3], device=dev,
+                          centered_fbc=centered)
+    x = np.random.default_rng(3).uniform(-1, 1, (2, sess.slots))
+    ct = sess.encrypt(x[0])
+    ct = ct.with_(data=torch.stack([ct.data, sess.encrypt(x[1]).data]))
+    diags, act = pipeline._infer_weights(sess.slots, 4, 7)
+    cuda_lib.reset_launches()
+    out = pipeline.infer_step(sess, ct, diags, act)
+    assert (cuda_lib.launches["centered_fbc"] > 0) == centered
+    dec = sess.decrypt(out).real
+    for i in range(2):
+        assert np.abs(dec[i] - pipeline.infer_reference(x[i], diags, act)
+                      ).max() < 5e-3
+    cpu = Session.from_wire(sess.ctx.params, sess.rk, sess.gk, device="cpu",
+                            centered_fbc=centered)
+    ref = pipeline.infer_step(cpu, ct.to("cpu"), diags, act)
     assert torch.equal(out.data.cpu(), ref.data)

@@ -1,12 +1,15 @@
 """Packaging contracts of hetpu_torch:
 
-  * importing it (and running the slice on CPU tensors) pulls in neither
-    JAX nor hetpu and builds nothing — checked in a fresh interpreter with
-    no nvcc reachable;
+  * importing it (every module, and running the slice on CPU tensors)
+    pulls in neither JAX nor hetpu and builds nothing — checked in a fresh
+    interpreter with no nvcc reachable;
   * CPU tensors take the plain paths: every kernel launch counter stays 0;
-  * a tensor on any other device raises instead of falling back.
+  * a tensor on any other device raises instead of falling back;
+  * the entry points run on the card unless given ``device="cpu"``, and
+    raise where there is none.
 """
 
+import inspect
 import os
 import subprocess
 import sys
@@ -17,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from hetpu_torch import convert
 from hetpu_torch.core import cuda_lib, fused_ntt, ip_kernel
 from hetpu_torch.core.context import Context
 from hetpu_torch.core.ntt import ntt_fwd, ntt_inv
@@ -32,12 +36,17 @@ def test_import_pulls_no_jax_and_builds_nothing(tmp_path):
     code = textwrap.dedent("""
         import sys
         import hetpu_torch, hetpu_torch.session, hetpu_torch.convert
+        import hetpu_torch.core.centered_fbc, hetpu_torch.math
         from hetpu_torch.core import cuda_lib
+        from hetpu_torch.offload import pipeline
         from hetpu_torch.session import Session
-        s = Session.create("test_tiny", seed=b"\\x01" * 32, galois_steps=[])
+        s = Session.create("test_tiny", seed=b"\\x01" * 32, galois_steps=[1],
+                           device="cpu", centered_fbc=True)
         ct = s.encrypt(0.5)
         out = s.ev.multiply_relin_rescale(ct, ct, s.rk)
         assert abs(s.decrypt(out).real - 0.25).max() < 1e-3
+        out = s.drop_level(s.ev.rotate(ct, 1, s.gk))
+        assert abs(s.decrypt(out).real - 0.5).max() < 1e-3
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "hetpu")]
         assert not bad, bad
@@ -58,7 +67,7 @@ def test_import_pulls_no_jax_and_builds_nothing(tmp_path):
 
 def test_cpu_tensors_never_launch():
     cuda_lib.reset_launches()
-    ctx = Context(preset("test_dnum"))
+    ctx = Context(preset("test_dnum"), "cpu")
     lvl = ctx.num_data - 1
     ks = ctx.keyswitch_plan(lvl)
     mdr = ctx.moddown_rescale_plan(lvl)
@@ -72,7 +81,8 @@ def test_cpu_tensors_never_launch():
     ext = torch.zeros((ks.num_digits, R, 1024), dtype=torch.int32)
     k = torch.zeros((ks.num_digits, 2, R, 1024), dtype=torch.int32)
     ip_kernel.inner_product(ext, k, k, ks.q)
-    s = Session.create("test_tiny", seed=b"\x02" * 32, galois_steps=[])
+    s = Session.create("test_tiny", seed=b"\x02" * 32, galois_steps=[],
+                       device="cpu")
     ct = s.encrypt(np.ones(4))
     s.decrypt(s.ev.square_relin_rescale(ct, s.rk))
     assert cuda_lib.launches == dict.fromkeys(cuda_lib.launches, 0)
@@ -81,7 +91,7 @@ def test_cpu_tensors_never_launch():
 def test_other_devices_raise():
     """No silent fallback: a tensor off the CPU and off CUDA (here the
     'meta' device) is refused, and so is a mix of devices."""
-    ctx = Context(preset("test_tiny"))
+    ctx = Context(preset("test_tiny"), "cpu")
     t = ctx.tables(0)
     with pytest.raises(ValueError, match="unsupported device"):
         ntt_fwd(torch.zeros((1, 1024), dtype=torch.int32, device="meta"), t)
@@ -91,3 +101,26 @@ def test_other_devices_raise():
                                                  dtype=torch.int32,
                                                  device="meta"),
                                 ext, ext)
+
+
+def test_entry_points_default_to_the_card():
+    """Session.create, Session.from_wire, Context and convert.* default to
+    device="cuda"; without a card they raise instead of falling back."""
+    for fn in (Session.create, Session.from_wire, Context.__init__,
+               convert.secret_key, convert.public_key, convert.kswitch_key,
+               convert.relin_keys, convert.galois_keys, convert.ciphertext,
+               convert.plaintext):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        assert Context(preset("test_tiny")).device.type == "cuda"
+        return
+    params = preset("test_tiny")
+    arr = np.zeros((2, 1, 8), dtype=np.uint32)
+    for call in (lambda: Context(params),
+                 lambda: Session.create(params, seed=b"\x03" * 32,
+                                        galois_steps=[]),
+                 lambda: Session.from_wire(params),
+                 lambda: convert.ciphertext(
+                     type("Ct", (), dict(data=arr, level=0, scale=1.0)))):
+        with pytest.raises((RuntimeError, AssertionError)):
+            call()

@@ -37,7 +37,7 @@ GOLD = pathlib.Path(__file__).parent / "golden"
 def test_plain_ntt_golden(name, tag):
     z = np.load(GOLD / f"{name}.npz")
     primes = tuple(int(p) for p in z[f"{tag}_primes"])
-    t = build_tables(z[f"{tag}_x"].shape[-1], primes)
+    t = build_tables(z[f"{tag}_x"].shape[-1], primes, "cpu")
     x = from_u32(z[f"{tag}_x"])
     np.testing.assert_array_equal(to_u32(ntt_fwd(x, t)), z[f"{tag}_fwd"])
     np.testing.assert_array_equal(to_u32(ntt_inv(x, t)), z[f"{tag}_inv"])
@@ -48,7 +48,7 @@ def dnum_basis():
     p = preset("test_dnum")
     primes = p.moduli + p.special_moduli
     rt = ref_ntt.build_tables(p.poly_degree, primes)
-    t = build_tables(p.poly_degree, primes)
+    t = build_tables(p.poly_degree, primes, "cpu")
     rng = np.random.default_rng(11)
     q = np.array(primes, dtype=np.uint64).reshape(-1, 1)
     x = (rng.integers(0, 1 << 62, (2, len(primes), p.poly_degree),
@@ -99,7 +99,7 @@ def ctx4096():
     params = ckks_params(1 << 12, **_PARAMS)
     rctx = RefContext(params)
     assert hasattr(rctx.tables_full, "sub1")          # four-step tables
-    return rctx, Context(params)
+    return rctx, Context(params, "cpu")
 
 
 @pytest.fixture

@@ -1,5 +1,6 @@
 """hetpu_torch.core.rns.fbc_apply (plain f32 α) is bit-equal to
-hetpu.core.rns.fbc_apply(precise=False) for every (correct, premul) pair,
+hetpu.core.rns.fbc_apply(precise=False) under jax.jit, as hetpu's
+Evaluator runs it, for every (correct, premul) pair,
 on the fused tail's conversion of test_dnum (dropped prime + specials →
 remaining data primes) with centered inputs, including values near the
 ±P/2 edges where α is largest."""
@@ -7,6 +8,7 @@ remaining data primes) with centered inputs, including values near the
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 
 from hetpu.core import rns as ref
@@ -29,8 +31,9 @@ def test_fbc_apply_equal(correct, premul):
     vals = [int(v) for v in rng.integers(-(1 << 62), 1 << 62, 1021)]
     vals += [P // 2, -(P // 2) + 1, 0]
     x = np.array([[v % q for v in vals] for q in src], dtype=np.uint32)
-    want = ref.fbc_apply(jnp.asarray(x), ref.make_fbc(src, dst),
-                         correct=correct, premul=premul)
-    got = rns.fbc_apply(from_u32(x), rns.make_fbc(src, dst),
+    plan = ref.make_fbc(src, dst)
+    want = jax.jit(lambda x: ref.fbc_apply(x, plan, correct=correct,
+                                           premul=premul))(jnp.asarray(x))
+    got = rns.fbc_apply(from_u32(x), rns.make_fbc(src, dst, "cpu"),
                         correct=correct, premul=premul)
     np.testing.assert_array_equal(to_u32(got), np.asarray(want))

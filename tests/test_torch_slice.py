@@ -35,7 +35,8 @@ SEED = b"\x33" * 32
 @pytest.fixture(scope="module")
 def sessions():
     ref = RefSession.create("test_dnum", seed=SEED, galois_steps=[1])
-    port = Session.create("test_dnum", seed=SEED, galois_steps=[1])
+    port = Session.create("test_dnum", seed=SEED, galois_steps=[1],
+                          device="cpu")
     return ref, port
 
 
@@ -67,7 +68,7 @@ def fused_out(sessions, pins):
     a = proto.with_(data=jnp.asarray(pins["fused_a"]))
     b = proto.with_(data=jnp.asarray(pins["fused_b"]))
     ref_out = ref.ev.multiply_relin_rescale(a, b, ref.rk)
-    pa, pb = convert.ciphertext(a), convert.ciphertext(b)
+    pa, pb = convert.ciphertext(a, "cpu"), convert.ciphertext(b, "cpu")
     return ref_out, port.ev.multiply_relin_rescale(pa, pb, port.rk), pa, pb
 
 
@@ -161,12 +162,12 @@ def test_op_on_converted_hetpu_state(sessions, encrypted):
     ref, _ = sessions
     _, _, ref_cts, _ = encrypted
     ref_out = ref.ev.multiply_relin_rescale(*ref_cts, ref.rk)
-    ev = Evaluator(Context(ref.ctx.params))
-    rk = convert.relin_keys(ref.rk)
-    out = ev.multiply_relin_rescale(*(convert.ciphertext(c) for c in ref_cts),
+    ev = Evaluator(Context(ref.ctx.params, "cpu"))
+    rk = convert.relin_keys(ref.rk, "cpu")
+    out = ev.multiply_relin_rescale(*(convert.ciphertext(c, "cpu") for c in ref_cts),
                                     rk)
     _eq(out.data, ref_out.data)
-    sk = convert.secret_key(ref.encryptor.sk)
+    sk = convert.secret_key(ref.encryptor.sk, "cpu")
     _eq(sk.data, ref.encryptor.sk.data)
-    _eq(convert.public_key(ref.encryptor.pk).data, ref.encryptor.pk.data)
+    _eq(convert.public_key(ref.encryptor.pk, "cpu").data, ref.encryptor.pk.data)
     assert torch.equal(from_u32(np.asarray(ref.rk.key.shoup)), rk.key.shoup)
