@@ -14,10 +14,13 @@ run exits non-zero without a result line):
      N=2^14 basis of tests/golden/golden_n14.npz, bit-exact;
   4. kernel vs plain — each of the five kernels against its plain PyTorch
      version on the same CUDA inputs at the bench_n14 B=8 shapes, exact
-     (torch.equal), with per-call times (CUDA events around 20
-     back-to-back calls, median of 5 windows; a kernel shorter than its
-     wrapper's host time is host-bound in this measure) and the least time
-     the card could take (bytes read once and written once over 3.35 TB/s);
+     (torch.equal), with per-call times (ms: CUDA events around 20
+     back-to-back eager calls, median of 5 windows; a kernel shorter than
+     its wrapper's host time is host-bound in this measure), one call
+     replayed from a CUDA graph with L2 flushed before it (graph_ms, median
+     of 10: the device's time alone, inputs from device memory) and the
+     least time the card could take (bytes read once and written once over
+     3.35 TB/s);
      K3 and K5 also on near-tie α columns built here for the bench_n14
      tail plan (columns where an fma chain and a multiply-then-add chain
      round α differently);
@@ -40,11 +43,27 @@ run exits non-zero without a result line):
      centered_fbc=True beside the default;
  10. profile — torch.profiler over 5 infer_step calls in each mode: device
      time per call by kernel (K1–K5, the plain PyTorch kernels by name),
-     device kernels per call, and the device's busy share of the wall time.
+     device kernels per call, and the device's busy share of the wall time;
+ 11. probes — the micro-benchmark kernels P1 copy_planes, P2 muladd_u32,
+     P3 dot_i8 and P4 plane_parts against their plain versions at each
+     probe's own shapes, exact (P3 on all four u8/s8 pairs at [128,256]@
+     [256,128], then [512,512]@[512,128] and 288 planes; P4 in all six
+     variants), timed as in phase 4 with the bound (bytes, or int8
+     tensor-core operations over 1,979 TOP/s where larger) and the library
+     call where one computes the same function (Tensor.copy_ for P1,
+     torch._int_mm for s8×s8 P3), both timed as ms and graph_ms; P4's
+     extract, twiddle and recomb also time their plain version as
+     graph_ms (plain_graph_ms); then every probe through its entry point
+     (hetpu_torch.probes.run: eager and CUDA-graph chains) and
+     kernel_micro on phase 6's session; last, the host's time per call of
+     each probe wrapper on one plane (host clock).
 
-Launch counts are zeroed just before each path and read just after it;
-the ``kernels`` line reports each kernel's launches on the inference path
-(K5: on its centered run).  The last line is
+Launch counts are zeroed just before each path and read just after it
+(a CUDA graph's replay counts the kernels its capture recorded); the
+``kernels`` line reports each kernel's launches on the inference path
+(K5: on its centered run; P1–P4: on the probes' run), its eager ``ms``
+and cold-L2 ``graph_ms``, and the library call's eager ms.  The last
+line is
 {"ok": true, "device": {"platform": "gpu", ...}}.
 Imports only hetpu_torch, torch and numpy (no JAX, no hetpu).
 """
@@ -70,7 +89,10 @@ from hetpu_torch.core.modular import from_u32, shoup_companion, to_u32
 from hetpu_torch.core.ntt import (build_tables, ntt_fwd, ntt_fwd_mont,
                                   ntt_fwd_plain, ntt_inv, ntt_inv_plain)
 from hetpu_torch.core.params import preset
+from hetpu_torch import probes
 from hetpu_torch.offload import pipeline
+from hetpu_torch.probes import copy as copy_probe
+from hetpu_torch.probes import dot, kernel_parts, overhead2
 from hetpu_torch.session import Session
 
 GOLD = Path(__file__).resolve().parent / "tests" / "golden"
@@ -82,28 +104,27 @@ INFER_ITERS = 50
 PROFILE_ITERS = 5
 N_DIAGS, WSEED = 8, 7
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
+INT8_OPS_PER_S = 1.979e15      # H100 SXM int8 tensor cores, dense (data sheet)
 
 
 def log(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
 
-def median_ms(fn, runs: int = TIMED_RUNS, samples: int = 5) -> float:
-    """Per-call ms: CUDA events around ``runs`` back-to-back calls, the
-    median over ``samples`` such windows, after two warm-up calls."""
-    for _ in range(2):
+def calls_ms(fn, runs: int, warmup: int = 3) -> float:
+    """ms per call of ``runs`` back-to-back eager calls (CUDA events
+    around them), after ``warmup`` calls and a synchronise."""
+    for _ in range(warmup):
         fn()
-    times = []
-    for _ in range(samples):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(runs):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / runs)
-    return statistics.median(times)
+    torch.cuda.synchronize()
+    return probes.window_ms(lambda: [fn() for _ in range(runs)]) / runs
+
+
+def median_ms(fn, runs: int = TIMED_RUNS, samples: int = 5) -> float:
+    """Per-call ms: the median of ``samples`` windows of ``runs``
+    back-to-back calls, after two warm-up calls."""
+    return statistics.median(calls_ms(fn, runs, 2 if i == 0 else 0)
+                             for i in range(samples))
 
 
 def residues(rng, shape, primes, device="cuda") -> torch.Tensor:
@@ -120,9 +141,16 @@ def bound_ms(*tensors) -> float:
         / HBM_BYTES_PER_S * 1e3
 
 
-def compare(name, kernel_fn, plain_fn, io) -> dict:
-    """Kernel vs plain version on the same inputs (exact), both timed;
-    ``io`` lists the kernel's input tensors, its output is added."""
+def compare(name, kernel_fn, plain_fn, io, ops: float = 0,
+            library=None, plain_graph: bool = False) -> dict:
+    """Kernel vs plain version on the same inputs (exact), both timed
+    eagerly (ms), the kernel also replayed with L2 cold (graph_ms);
+    ``io`` lists the kernel's input tensors, its output is added.  The
+    bound is the larger of the bytes over the memory rate and ``ops``
+    int8 tensor-core operations over their peak.  ``library``: (fn,
+    as_out) — one PyTorch call computing the same function, timed both
+    ways, and ``as_out`` mapping its result to the kernel's layout for a
+    check.  ``plain_graph``: the plain version replayed too."""
     got = kernel_fn()
     want = plain_fn()
     torch.cuda.synchronize()
@@ -131,9 +159,22 @@ def compare(name, kernel_fn, plain_fn, io) -> dict:
         raise AssertionError(f"{name}: kernel differs from plain "
                              f"({bad} elements)")
     err = (got.to(torch.int64) - want.to(torch.int64)).abs().max().item()
-    return {"max_abs_err": float(err), "ms": median_ms(kernel_fn),
-            "plain_ms": median_ms(plain_fn), "bound_ms": bound_ms(*io, got),
-            "shape_in": list(io[0].shape), "shape_out": list(got.shape)}
+    by_bytes = bound_ms(*io, got)
+    by_ops = ops / INT8_OPS_PER_S * 1e3
+    r = {"max_abs_err": float(err), "ms": median_ms(kernel_fn),
+         "graph_ms": probes.cold_ms(kernel_fn),
+         "plain_ms": median_ms(plain_fn), "bound_ms": max(by_bytes, by_ops),
+         "bound_by": "operations" if by_ops > by_bytes else "bytes",
+         "library_ms": None, "shape_in": list(io[0].shape),
+         "shape_out": list(got.shape)}
+    if plain_graph:
+        r["plain_graph_ms"] = probes.cold_ms(plain_fn)
+    if library is not None:
+        fn, as_out = library
+        r["library_equal"] = bool(torch.equal(as_out(fn()), want))
+        r["library_ms"] = median_ms(fn)
+        r["library_graph_ms"] = probes.cold_ms(fn)
+    return r
 
 
 def plan_tensors(plan: CenteredFbcPlan) -> list:
@@ -398,23 +439,8 @@ def phase_main_path(rng):
     return sess, a, b
 
 
-def time_calls(fn, iters: int) -> float:
-    """ms per call: CUDA events around ``iters`` calls after 3 warm-ups."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def phase_time(sess, a, b, smi: str) -> None:
-    ms = time_calls(lambda: sess.ev.multiply_relin_rescale(a, b, sess.rk),
+    ms = calls_ms(lambda: sess.ev.multiply_relin_rescale(a, b, sess.rk),
                     OP_ITERS)
     ops = B * 1000.0 / ms
     log("time", op="multiply_relin_rescale", preset="bench_n14", batch=B,
@@ -486,17 +512,17 @@ def phase_infer(rng):
 
 def phase_infer_time(sess, cent, ct, diags, act, a, b, smi: str) -> None:
     for mode, s in (("default", sess), ("centered_fbc", cent)):
-        ms = time_calls(lambda: pipeline.infer_step(s, ct, diags, act),
+        ms = calls_ms(lambda: pipeline.infer_step(s, ct, diags, act),
                         INFER_ITERS)
         log("time", op="infer_step", mode=mode, preset="bench_n14", batch=B,
             n_diags=N_DIAGS, iters=INFER_ITERS, ms_per_call=ms,
             vectors_per_s=B * 1000.0 / ms, card=smi)
-    ms = time_calls(lambda: sess.ev.rotate(ct, 1, sess.gk), OP_ITERS)
+    ms = calls_ms(lambda: sess.ev.rotate(ct, 1, sess.gk), OP_ITERS)
     log("time", op="rotate", steps=1, preset="bench_n14", batch=B,
         iters=OP_ITERS, ms_per_call=ms, ops_per_s=B * 1000.0 / ms, card=smi)
     for mode, ev in (("default", Evaluator(cent.ctx)),
                      ("centered_fbc", cent.ev)):
-        ms = time_calls(lambda: ev.multiply_relin_rescale(a, b, sess.rk),
+        ms = calls_ms(lambda: ev.multiply_relin_rescale(a, b, sess.rk),
                         OP_ITERS)
         log("time", op="multiply_relin_rescale", mode=mode,
             preset="bench_n14", batch=B, iters=OP_ITERS, ms_per_call=ms,
@@ -546,20 +572,158 @@ def phase_profile(sess, cent, ct, diags, act, smi: str) -> None:
             plain_top_us=top, card=smi)
 
 
-# name, source, replaced TPU kernel, timing cases (first = the row's times)
+def phase_probe_kernels(rng) -> dict:
+    """P1–P4 against their plain versions at each probe's own shapes."""
+    out = {}
+    x = copy_probe.planes_u32((32, 9, 128, 128), device="cuda")
+    dst = torch.empty_like(x)
+    lib_copy = (lambda: dst.copy_(x), lambda r: r)
+    for name, args in (("copy_planes_rb8", (8, False)),
+                       ("copy_planes_flat_rb8", (8, True))):
+        out[name] = compare(name, lambda: copy_probe.copy_planes(x, *args),
+                            lambda: copy_probe.copy_planes_plain(x, *args),
+                            [x], library=lib_copy)
+    x4 = copy_probe.planes_u32((1152, 128, 128), device="cuda")
+    dst4 = torch.empty_like(x4)
+    out["copy_planes_1152"] = compare(
+        "copy_planes_1152", lambda: copy_probe.copy_planes(x4, 8),
+        lambda: copy_probe.copy_planes_plain(x4, 8), [x4],
+        library=(lambda: dst4.copy_(x4), lambda r: r))
+    out["muladd_u32"] = compare(
+        "muladd_u32", lambda: overhead2.muladd_u32(x),
+        lambda: overhead2.muladd_u32_plain(x), [x])
+
+    def dot_case(name, a, b, ppb=1, library=None):
+        out[name] = compare(name, lambda: dot.dot_i8(a, b, ppb),
+                            lambda: dot.dot_i8_plain(a, b), [a, b],
+                            ops=2 * b.shape[0] * a.shape[0] * a.shape[1]
+                            * b.shape[2], library=library)
+
+    # torch._int_mm: the s8×s8 library yardstick (the port never calls it)
+    for pname, la, ra in dot.PAIRS:
+        a, b = (torch.from_numpy(v).cuda() for v in dot.pair_inputs(la, ra))
+        mm = None
+        if a.dtype == b.dtype == torch.int8:
+            mm = (lambda a=a, b=b: torch._int_mm(a, b), lambda r: r[None])
+        dot_case("dot_i8_" + pname.replace(" x ", "x"), a, b[None],
+                 library=mm)
+    w8 = torch.from_numpy(rng.integers(-128, 128, (512, 512),
+                                       dtype=np.int8)).cuda()
+    x8 = torch.from_numpy(rng.integers(-128, 128, (512, 128),
+                                       dtype=np.int8)).cuda()
+    dot_case("dot_i8_512", w8, x8[None],
+             library=(lambda: torch._int_mm(w8, x8), lambda r: r[None]))
+    w, a = dot.int8_mxu_inputs(288, device="cuda")
+    a2 = a.permute(1, 0, 2).reshape(512, 288 * 128).contiguous()
+    mm = (lambda: torch._int_mm(w, a2),
+          lambda r: r.view(512, 288, 128).permute(1, 0, 2))
+    dot_case("dot_i8_288", w, a, 1, library=mm)
+    dot_case("dot_i8_288_ppb8", w, a, 8)
+
+    # dot and dot2 issue the products of all 512 rows, as the TPU probe
+    # does; the bound counts only those the stored rows 0..127 depend on:
+    # a quarter of one product for dot, the whole first product and a
+    # quarter of the second for dot2
+    xp, wp, tw, tws = kernel_parts.make_inputs(device="cuda")
+    planes = xp.shape[0] * xp.shape[1]
+    macs = planes * 512 * 512 * 128
+    io = {"copy": [xp], "dot": [xp, wp], "dot2": [xp, wp],
+          "extract": [xp], "twiddle": [xp, tw, tws], "recomb": [xp]}
+    for v in kernel_parts.VARIANTS:
+        out["plane_parts_" + v] = compare(
+            "plane_parts " + v,
+            lambda: kernel_parts.plane_parts(v, xp, wp, tw, tws),
+            lambda: kernel_parts.plane_parts_plain(v, xp, wp, tw, tws),
+            io[v], ops={"dot": macs // 2, "dot2": 2 * macs + macs // 2}
+            .get(v, 0), plain_graph=v in ("extract", "twiddle", "recomb"))
+    for v, issued in (("dot", 2 * macs), ("dot2", 4 * macs)):
+        out["plane_parts_" + v]["issued_ops_ms"] = \
+            issued / INT8_OPS_PER_S * 1e3
+    for name, r in out.items():
+        log("kernel_vs_plain", kernel=name, **r)
+    return out
+
+
+def phase_probes(sess, smi: str) -> dict:
+    """The probes' own entry point on the card, launches counted around
+    it: every micro-benchmark, then kernel_micro on ``sess``."""
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    res = {name: probes.run(name) for name in probes.NAMES
+           if name != "kernel_micro"}
+    res["kernel_micro"] = probes.run("kernel_micro", sess=sess)
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.launches)
+    if not all(r["exact"] for r in res["u8_dot"]) \
+            or not res["pallas_s8"]["exact"]:
+        raise AssertionError("dot_i8 is not exact in the u8_dot / pallas_s8 "
+                             "probes")
+    missing = [k for k in ("copy_planes", "muladd_u32", "dot_i8",
+                           "plane_parts") if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the probes: {missing}")
+    log("probes", seconds=round(time.perf_counter() - t0, 3),
+        launches=launches, results=res, card=smi)
+    return launches
+
+
+def phase_host_cost(smi: str) -> None:
+    """Host seconds per call of each wrapper on one small plane, on the
+    host clock: 200 calls enqueued back to back, then one synchronise (the
+    card's work per call is far shorter than the host's)."""
+    x = copy_probe.planes_u32((8, 1, 128, 128), device="cuda")
+    xp, wp, tw, tws = kernel_parts.make_inputs(1, 1, device="cuda")
+    w, a = dot.int8_mxu_inputs(1, device="cuda")
+    calls = {"torch x ^ 1": lambda: x ^ 1,
+             "torch x.clone()": lambda: x.clone(),
+             "copy_planes": lambda: copy_probe.copy_planes(x, 8),
+             "muladd_u32": lambda: overhead2.muladd_u32(x),
+             "dot_i8": lambda: dot.dot_i8(w, a),
+             "plane_parts": lambda: kernel_parts.plane_parts("copy", xp, wp,
+                                                            tw, tws)}
+    us = {}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        us[name] = (t1 - t0) / 200 * 1e6
+    log("host_cost", host_us_per_call=us, card=smi)
+
+
+# name, source, replaced TPU kernel, timing cases (first = the row's
+# times; the others are in the kernel_vs_plain lines), path of the launches
+PARTS = tuple("plane_parts_" + v for v in kernel_parts.VARIANTS)
 KERNELS = [
     ("ntt", "hetpu_torch/csrc/ntt.cu", "hetpu/core/mxu_ntt.py:710",
-     ("ntt_inv", "ntt_fwd")),
+     ("ntt_inv", "ntt_fwd"), "default"),
     ("ntt_fwd_lifted", "hetpu_torch/csrc/fused_ntt.cu",
-     "hetpu/core/mxu_ntt.py:816", ("ntt_fwd_lifted",)),
+     "hetpu/core/mxu_ntt.py:816", ("ntt_fwd_lifted",), "default"),
     ("ntt_fwd_fbc", "hetpu_torch/csrc/fused_ntt.cu",
-     "hetpu/core/mxu_ntt.py:816", ("ntt_fwd_fbc", "ntt_fwd_fbc_ties")),
+     "hetpu/core/mxu_ntt.py:816", ("ntt_fwd_fbc", "ntt_fwd_fbc_ties"),
+     "default"),
     ("inner_product", "hetpu_torch/csrc/ip_kernel.cu",
-     "hetpu/core/ip_kernel.py:75", ("inner_product",)),
+     "hetpu/core/ip_kernel.py:75", ("inner_product",), "default"),
     ("centered_fbc", "hetpu_torch/csrc/centered_fbc.cu",
      "hetpu/core/mxu_fbc.py:214",
      ("centered_fbc_tail", "centered_fbc_lift0", "centered_fbc_lift1",
-      "centered_fbc_moddown", "centered_fbc_ties")),
+      "centered_fbc_moddown", "centered_fbc_ties"), "centered"),
+    ("copy_planes", "hetpu_torch/csrc/probes.cu", "scripts/probe_grid.py:30",
+     ("copy_planes_rb8", "copy_planes_flat_rb8", "copy_planes_1152"),
+     "probes"),
+    ("muladd_u32", "hetpu_torch/csrc/probes.cu",
+     "scripts/probe_overhead2.py:45", ("muladd_u32",), "probes"),
+    ("dot_i8", "hetpu_torch/csrc/probes.cu", "scripts/probe_int8_mxu.py:59",
+     ("dot_i8_288", "dot_i8_288_ppb8", "dot_i8_512", "dot_i8_u8xs8",
+      "dot_i8_s8xu8", "dot_i8_s8xs8", "dot_i8_u8xu8"), "probes"),
+    ("plane_parts", "hetpu_torch/csrc/probes.cu",
+     "scripts/probe_kernel_parts.py:57",
+     ("plane_parts_twiddle",) + tuple(c for c in PARTS
+                                      if c != "plane_parts_twiddle"),
+     "probes"),
 ]
 
 
@@ -575,19 +739,23 @@ def main() -> int:
     isess, cent, ct, diags, act, default, centered = phase_infer(rng)
     phase_infer_time(isess, cent, ct, diags, act, a, b, smi)
     phase_profile(isess, cent, ct, diags, act, smi)
+    timings.update(phase_probe_kernels(rng))
+    launches = {"default": default["launches"],
+                "centered": centered["launches"],
+                "probes": phase_probes(sess, smi)}
+    phase_host_cost(smi)
     rows = []
-    for kname, src, replaces, cases in KERNELS:
-        # the ntt kernel reports its inverse case; the other cases are in
-        # the kernel_vs_plain lines
+    for kname, src, replaces, cases, path in KERNELS:
         r = timings[cases[0]]
-        path = centered if kname == "centered_fbc" else default
         rows.append({"name": kname, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": path["launches"][kname],
+                     "replaces": replaces,
+                     "launches": launches[path][kname],
                      "max_abs_err": max(timings[c]["max_abs_err"]
                                         for c in cases),
-                     "ms": r["ms"], "plain_ms": r["plain_ms"],
-                     "bound_ms": r["bound_ms"], "bound_by": "bytes",
-                     "library_ms": None})
+                     "ms": r["ms"], "graph_ms": r["graph_ms"],
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"],
+                     "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

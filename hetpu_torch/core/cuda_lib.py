@@ -9,14 +9,19 @@ repository root; the library's file name carries a hash of the sources
 and flags, so an edited source rebuilds.
 
 Each kernel wrapper (``ntt.py``, ``fused_ntt.py``, ``ip_kernel.py``,
-``centered_fbc.py``) checks its tensors, allocates outputs with
+``centered_fbc.py``, and the probes' ``copy.py``, ``overhead2.py``,
+``dot.py`` and ``kernel_parts.py``) checks its tensors, allocates outputs with
 ``torch.empty``, launches on ``torch.cuda.current_stream()``, raises on a
 non-zero ``cudaGetLastError()`` and adds one to its entry in
-:data:`launches`.
+:data:`launches`.  A call made inside :func:`recording` (a CUDA graph
+capture) does not launch: it records the kernel into the graph and counts
+there instead; each replay of that graph launches the recorded kernels
+and counts them in :data:`launches` (:func:`count_replay`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -35,12 +40,14 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 # kernel name → launches made by its wrapper (one per kernel launch)
 launches = {"ntt": 0, "ntt_fwd_lifted": 0, "ntt_fwd_fbc": 0,
-             "inner_product": 0, "centered_fbc": 0}
+            "inner_product": 0, "centered_fbc": 0, "copy_planes": 0,
+            "muladd_u32": 0, "dot_i8": 0, "plane_parts": 0}
 
 _lock = threading.Lock()
 _lib = None
+_recorded = None           # counts of the capture in progress (recording)
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 _SIGNATURES = {
     # x, out, rows, L, logn, w, ws, q, c1, c2, inverse, stream
     "hetpu_ntt": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P),
@@ -57,12 +64,40 @@ _SIGNATURES = {
     # stream
     "hetpu_centered_fbc": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                            _P, _P, _P, _P),
+    # x, out, R, L, e4, rb, lb, stream
+    "hetpu_copy_planes": (_P, _P, _I, _I, _I, _I, _I, _P),
+    # x, out, n4, stream
+    "hetpu_muladd_u32": (_P, _P, ctypes.c_longlong, _P),
+    # a, b, out, M, K, batch, ppb, a_unsigned, b_unsigned, stream
+    "hetpu_dot_i8": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, w, tw, tws, out, planes, L, q, variant, stream
+    "hetpu_plane_parts": (_P, _P, _P, _P, _P, _I, _I, _U, _I, _P),
 }
 
 
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+
+
+@contextlib.contextmanager
+def recording():
+    """Wrap a CUDA graph capture: the wrapper calls inside record their
+    kernels into the graph instead of launching them, so they count in
+    the dict this yields (name → calls), not in :data:`launches`."""
+    global _recorded
+    _recorded = dict.fromkeys(launches, 0)
+    try:
+        yield _recorded
+    finally:
+        _recorded = None
+
+
+def count_replay(kernels: dict) -> None:
+    """Count one replay of a CUDA graph whose capture recorded ``kernels``
+    (name → launches): the replay launches each of them."""
+    for k, n in kernels.items():
+        launches[k] += n
 
 
 def _nvcc() -> str:
@@ -177,7 +212,8 @@ def ptr(t: torch.Tensor | None):
 
 def launch(kernel: str, fn_name: str, device: torch.device, *args) -> None:
     """Call C entry ``fn_name`` on ``device``'s current stream, raise on a
-    launch error, and count the launch under ``kernel``."""
+    launch error, and count the launch under ``kernel`` (inside
+    :func:`recording`, as recorded)."""
     handle = lib()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -185,4 +221,4 @@ def launch(kernel: str, fn_name: str, device: torch.device, *args) -> None:
     if err != 0:
         msg = handle.hetpu_error_string(err).decode()
         raise RuntimeError(f"{kernel} kernel launch failed: {msg} ({err})")
-    launches[kernel] += 1
+    (launches if _recorded is None else _recorded)[kernel] += 1

@@ -1,0 +1,66 @@
+"""Profiling: a ``torch.profiler`` trace and an honest per-op latency.
+
+Counterpart of ``hetpu/utils/profiling.py``.
+
+* ``trace(log_dir)`` — ``torch.profiler`` over the block (CPU activity,
+  and CUDA activity where there is a card); the Chrome trace is written to
+  ``log_dir/trace.json`` (open it in Perfetto or ``chrome://tracing``).
+* ``op_latency(fn, data, iters)`` — seconds per call of ``fn``, with each
+  call's input chained to the previous output through a one-bit tag, so
+  neither overlap nor reuse of a result can shorten the measure.  Timed
+  with CUDA events on the card and ``time.perf_counter`` on the CPU.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import tempfile
+import time
+
+import torch
+
+
+@contextlib.contextmanager
+def trace(log_dir: str | None = None):
+    """Profile the block; yields the profiler (``key_averages()`` etc.)
+    and writes ``<log_dir>/trace.json`` on exit."""
+    from torch.profiler import ProfilerActivity, profile
+    log_dir = log_dir or os.path.join(tempfile.gettempdir(),
+                                      "hetpu_torch_trace")
+    os.makedirs(log_dir, exist_ok=True)
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def _tag(x: torch.Tensor) -> torch.Tensor:
+    """One bit of ``x``: the parity of the sum of ``x[..., :1, :8]`` (the
+    reference's ``_tag``), as an int64 scalar on x's device."""
+    return x[..., :1, :8].to(torch.int64).sum() & 1
+
+
+def op_latency(fn, data: torch.Tensor, iters: int = 10) -> float:
+    """Seconds per call of ``fn(data ^ tag) -> tensor``, where each tag
+    comes from the previous call's output (one warm-up call with tag 0
+    first)."""
+    def step(tag):
+        return _tag(fn(data ^ tag.to(data.dtype)))
+
+    tag = step(torch.zeros((), dtype=torch.int64, device=data.device))
+    if data.device.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            tag = step(tag)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / 1e3 / iters
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        tag = step(tag)
+    return (time.perf_counter() - t0) / iters

@@ -23,6 +23,8 @@ from hetpu_torch.core.ntt import (build_tables, ntt_fwd, ntt_fwd_plain,
                                   ntt_inv, ntt_inv_plain)
 from hetpu_torch.core.params import ckks_params, preset
 from hetpu_torch.offload import pipeline
+from hetpu_torch.probes import copy as copy_probe
+from hetpu_torch.probes import dot, kernel_parts, overhead2
 from hetpu_torch.session import Session
 
 pytestmark = pytest.mark.cuda
@@ -248,3 +250,69 @@ def test_infer_step_card_equals_cpu(dev, centered):
                             centered_fbc=centered)
     ref = pipeline.infer_step(cpu, ct.to("cpu"), diags, act)
     assert torch.equal(out.data.cpu(), ref.data)
+
+
+# ----------------------------------------------------------------------
+# the probes' kernels P1–P4 (hetpu_torch/probes)
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape,rb,flat", [((32, 9, 128, 128), 8, False),
+                                           ((32, 9, 128, 128), 32, True),
+                                           ((288, 128, 128), 8, False),
+                                           ((4, 3, 8, 8), 2, True)])
+def test_copy_planes_kernel(dev, shape, rb, flat):
+    x = copy_probe.planes_u32(shape, seed=len(shape) + rb, device=dev)
+    before = cuda_lib.launches["copy_planes"]
+    assert torch.equal(copy_probe.copy_planes(x, rb, flat), x)
+    assert cuda_lib.launches["copy_planes"] == before + 1
+
+
+def test_muladd_u32_kernel(dev):
+    x = from_u32(np.random.default_rng(5).integers(
+        0, 1 << 32, (32, 9, 128, 128), dtype=np.uint64).astype(np.uint32),
+        dev)
+    assert torch.equal(overhead2.muladd_u32(x), overhead2.muladd_u32_plain(x))
+
+
+@pytest.mark.parametrize("pair", [p[0] for p in dot.PAIRS])
+def test_dot_i8_pairs(dev, pair):
+    _, la, ra = next(p for p in dot.PAIRS if p[0] == pair)
+    a, b = dot.pair_inputs(la, ra)
+    a, b = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)[None]
+    assert torch.equal(dot.dot_i8(a, b), dot.dot_i8_plain(a, b))
+
+
+@pytest.mark.parametrize("batch,ppb", [(1, 1), (19, 1), (19, 8)])
+def test_dot_i8_batched(dev, batch, ppb):
+    w, a = dot.int8_mxu_inputs(batch, seed=batch, device=dev)
+    assert torch.equal(dot.dot_i8(w, a, ppb), dot.dot_i8_plain(w, a))
+
+
+@pytest.mark.parametrize("variant", ["copy", "dot", "dot2", "extract",
+                                     "twiddle", "recomb"])
+def test_plane_parts_kernel(dev, variant):
+    x, w, tw, tws = kernel_parts.make_inputs(rows=2, limbs=3, seed=3,
+                                             device=dev)
+    x[0, 0, 0, :4] = torch.tensor([-1, -2**31, 2**31 - 1, 536870912],
+                                  dtype=torch.int32)
+    got = kernel_parts.plane_parts(variant, x, w, tw, tws)
+    assert torch.equal(got, kernel_parts.plane_parts_plain(variant, x, w,
+                                                           tw, tws))
+
+
+def test_graph_replay_counts_its_launches(dev):
+    """A call recorded into a CUDA graph is not counted as a launch; each
+    replay counts the recorded launches; the cold-L2 time of one replayed
+    call is positive."""
+    from hetpu_torch import probes
+    x = copy_probe.planes_u32((8, 1, 128, 128), device=dev)
+    fn = lambda: overhead2.muladd_u32(copy_probe.copy_planes(x, 8))
+    fn()                                         # builds the library
+    before = dict(cuda_lib.launches)
+    g = probes.Captured(fn)                      # one eager call, then capture
+    assert g.kernels == {"copy_planes": 1, "muladd_u32": 1}
+    assert cuda_lib.launches["copy_planes"] == before["copy_planes"] + 1
+    for _ in range(3):
+        g.replay()
+    assert cuda_lib.launches["muladd_u32"] == before["muladd_u32"] + 4
+    assert probes.cold_ms(fn, reps=2) > 0

@@ -1,7 +1,7 @@
 """Packaging contracts of hetpu_torch:
 
-  * importing it (every module, and running the slice on CPU tensors)
-    pulls in neither JAX nor hetpu and builds nothing — checked in a fresh
+  * importing it (every module, and running the slice and the probes on
+    CPU tensors) pulls in neither JAX nor hetpu and builds nothing — checked in a fresh
     interpreter with no nvcc reachable;
   * CPU tensors take the plain paths: every kernel launch counter stays 0;
   * a tensor on any other device raises instead of falling back;
@@ -37,6 +37,10 @@ def test_import_pulls_no_jax_and_builds_nothing(tmp_path):
         import sys
         import hetpu_torch, hetpu_torch.session, hetpu_torch.convert
         import hetpu_torch.core.centered_fbc, hetpu_torch.math
+        import hetpu_torch.core.mxu_digits, hetpu_torch.probes.__main__
+        import hetpu_torch.utils.debug, hetpu_torch.utils.profiling
+        import hetpu_torch.utils.timer
+        from hetpu_torch import probes
         from hetpu_torch.core import cuda_lib
         from hetpu_torch.offload import pipeline
         from hetpu_torch.session import Session
@@ -47,6 +51,8 @@ def test_import_pulls_no_jax_and_builds_nothing(tmp_path):
         assert abs(s.decrypt(out).real - 0.25).max() < 1e-3
         out = s.drop_level(s.ev.rotate(ct, 1, s.gk))
         assert abs(s.decrypt(out).real - 0.5).max() < 1e-3
+        probes.run("kernel_parts", device="cpu", rows=1, limbs=1, k=1)
+        probes.run("int8_mxu", device="cpu", batch=1, k=1)
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "hetpu")]
         assert not bad, bad
