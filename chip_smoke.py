@@ -20,10 +20,17 @@ run exits non-zero without a result line):
      replayed from a CUDA graph with L2 flushed before it (graph_ms, median
      of 10: the device's time alone, inputs from device memory) and the
      least time the card could take (bytes read once and written once over
-     3.35 TB/s);
+     3.35 TB/s, or for K1 and K3 the 32-bit multiplies of their Shoup
+     products over 64 lanes an SM at the SM clock nvidia-smi reports as
+     clocks.max.sm, where larger); K1 also at the rescale's one-limb
+     INTT [8,2,1,N], the mod-down INTT [8,2,5,N] and the probes' 288
+     planes [32,9,N], K3 at the tail
+     [8,2,6,N]→[8,2,8,N] and the mod-down [8,2,5,N]→[8,2,9,N];
      K3 and K5 also on near-tie α columns built here for the bench_n14
      tail plan (columns where an fma chain and a multiply-then-add chain
-     round α differently);
+     round α differently); then K1 and K3 at the same shapes with each
+     cluster size C (CTAs a plane), exact, eager and cold, beside the C
+     the wrappers choose (the ``cluster_sweep`` line);
   5. goldens — Session "test_dnum" (seed 0x33) on the card:
      multiply_relin_rescale on golden_pins fused_a/fused_b = fused_out and
      rotate by 1 = fused_rot; golden_n14 rs_n14 through Evaluator.rescale;
@@ -62,7 +69,8 @@ Launch counts are zeroed just before each path and read just after it
 (a CUDA graph's replay counts the kernels its capture recorded); the
 ``kernels`` line reports each kernel's launches on the inference path
 (K5: on its centered run; P1–P4: on the probes' run), its eager ``ms``
-and cold-L2 ``graph_ms``, and the library call's eager ms.  The last
+and cold-L2 ``graph_ms``, the library call's eager ms, and under
+``cases`` the times of each shape it was compared at.  The last
 line is
 {"ok": true, "device": {"platform": "gpu", ...}}.
 Imports only hetpu_torch, torch and numpy (no JAX, no hetpu).
@@ -80,7 +88,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from hetpu_torch.core import cuda_lib, fused_ntt, ip_kernel
+from hetpu_torch.core import cuda_lib, fused_ntt, ip_kernel, ntt, ntt_passes
 from hetpu_torch.core.centered_fbc import CenteredFbcPlan
 from hetpu_torch.core.ciphertext import Ciphertext
 from hetpu_torch.core.context import Context
@@ -105,6 +113,10 @@ PROFILE_ITERS = 5
 N_DIAGS, WSEED = 8, 7
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 INT8_OPS_PER_S = 1.979e15      # H100 SXM int8 tensor cores, dense (data sheet)
+INT32_LANES_PER_SM = 64        # Hopper SM: 32-bit integer multiply lanes
+IMUL_PER_SHOUP = 3             # __umulhi, x*w, qe*q
+CLUSTERS = (1, 2, 4, 8)        # CTAs a plane, swept by phase_clusters
+imul_per_s = 0.0               # set by phase_device from the SM clock
 
 
 def log(phase: str, **kw) -> None:
@@ -141,13 +153,14 @@ def bound_ms(*tensors) -> float:
         / HBM_BYTES_PER_S * 1e3
 
 
-def compare(name, kernel_fn, plain_fn, io, ops: float = 0,
+def compare(name, kernel_fn, plain_fn, io, ops: float = 0, imul: float = 0,
             library=None, plain_graph: bool = False) -> dict:
     """Kernel vs plain version on the same inputs (exact), both timed
     eagerly (ms), the kernel also replayed with L2 cold (graph_ms);
     ``io`` lists the kernel's input tensors, its output is added.  The
-    bound is the larger of the bytes over the memory rate and ``ops``
-    int8 tensor-core operations over their peak.  ``library``: (fn,
+    bound is the largest of the bytes over the memory rate, ``ops`` int8
+    tensor-core operations over their peak and ``imul`` 32-bit integer
+    multiplies over the SMs' multiply lanes at the maximum SM clock.  ``library``: (fn,
     as_out) — one PyTorch call computing the same function, timed both
     ways, and ``as_out`` mapping its result to the kernel's layout for a
     check.  ``plain_graph``: the plain version replayed too."""
@@ -160,13 +173,16 @@ def compare(name, kernel_fn, plain_fn, io, ops: float = 0,
                              f"({bad} elements)")
     err = (got.to(torch.int64) - want.to(torch.int64)).abs().max().item()
     by_bytes = bound_ms(*io, got)
-    by_ops = ops / INT8_OPS_PER_S * 1e3
+    by_ops = max(ops / INT8_OPS_PER_S, imul / imul_per_s if imul else 0) * 1e3
     r = {"max_abs_err": float(err), "ms": median_ms(kernel_fn),
          "graph_ms": probes.cold_ms(kernel_fn),
          "plain_ms": median_ms(plain_fn), "bound_ms": max(by_bytes, by_ops),
          "bound_by": "operations" if by_ops > by_bytes else "bytes",
          "library_ms": None, "shape_in": list(io[0].shape),
          "shape_out": list(got.shape)}
+    if imul:
+        r["imul_bound_ms"] = imul / imul_per_s * 1e3
+        r["bytes_bound_ms"] = by_bytes
     if plain_graph:
         r["plain_graph_ms"] = probes.cold_ms(plain_fn)
     if library is not None:
@@ -246,15 +262,24 @@ def near_tie_columns(primes, centered: bool, count: int, seed: int):
 # phases
 # ----------------------------------------------------------------------
 
+def _smi(query: str) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+
 def phase_device() -> tuple[str, str]:
+    global imul_per_s
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = _smi("name,power.limit")
+    clock = _smi("clocks.max.sm")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    imul_per_s = INT32_LANES_PER_SM * sms * float(clock.split()[0]) * 1e6
     log("device", name=name, nvidia_smi=smi, count=torch.cuda.device_count(),
+        sms=sms, clocks_max_sm=clock, int32_mul_per_s=imul_per_s,
         torch=torch.__version__, cuda=torch.version.cuda)
     return name, smi
 
@@ -282,26 +307,87 @@ def phase_ntt_golden() -> None:
     log("ntt_golden", primes=len(primes), n=t.n, exact=True)
 
 
+def ntt_cases(rng, ctx) -> dict:
+    """K1 at the bench_n14 B=8 shapes of the main path: (x, tables,
+    keyword arguments) by case."""
+    n = ctx.params.poly_degree
+    tabs = ctx.tables(LEVEL)
+    ks = ctx.keyswitch_plan(LEVEL)
+    md = ks.moddown
+    rs = ctx.rescale_plan(LEVEL).src_tables
+    x = residues(rng, (B, LEVEL + 1, n), tabs.primes)
+    return {
+        # decompose INTT [8,9,N] and the forward NTT ×R of the same shape
+        "ntt_inv": (x, tabs, dict(strip_mont=True, extra=ks.dig_inv)),
+        "ntt_fwd": (x, tabs, dict(to_mont=True)),
+        # rescale's one-limb INTT [8,2,1,N]
+        "ntt_inv_rescale": (residues(rng, (B, 2, 1, n), rs.primes), rs,
+                            dict(strip_mont=True)),
+        # the probes' 288 planes [32,9,N] (kernel_micro)
+        "ntt_fwd_288": (residues(rng, (32, LEVEL + 1, n), tabs.primes), tabs,
+                        dict(to_mont=True)),
+        # mod-down INTT of the special limbs [8,2,5,N]
+        "ntt_inv_moddown": (residues(rng, (B, 2, len(md.src_tables.primes), n),
+                                     md.src_tables.primes), md.src_tables,
+                            dict(strip_mont=True, extra=md.fbc.inv_punit)),
+    }
+
+
+def fbc_cases(rng, ctx) -> dict:
+    """K3 at the tail [8,2,6,N]→[8,2,8,N] and the mod-down
+    [8,2,5,N]→[8,2,9,N]: (u, plan, target tables) by case."""
+    n = ctx.params.poly_degree
+    mdr = ctx.moddown_rescale_plan(LEVEL)
+    md = ctx.keyswitch_plan(LEVEL).moddown
+    out = {}
+    for name, plan in (("ntt_fwd_fbc", mdr), ("ntt_fwd_fbc_moddown", md)):
+        src = plan.src_tables.primes
+        out[name] = (residues(rng, (B, 2, len(src), n), src), plan.fbc,
+                     plan.dst_tables)
+    return out
+
+
+def ntt_tables(t, inverse: bool) -> list:
+    return ([t.inv_pass_w, t.inv_pass_w_shoup] if inverse
+            else [t.fwd_pass_w, t.fwd_pass_w_shoup])
+
+
+def fbc_tensors(fbc, t) -> list:
+    return [fbc.phat_mod_r, fbc.phat_shoup, fbc.p_recip, t.fwd_pass_w,
+            t.fwd_pass_w_shoup]
+
+
+def ntt_imuls(planes: int, n: int) -> float:
+    """32-bit multiplies of ``planes`` transforms: N/2·log2 N Shoup
+    butterflies and the epilogue's Shoup multiply of every residue."""
+    return IMUL_PER_SHOUP * planes * (n // 2 * (n.bit_length() - 1) + n)
+
+
+def fbc_imuls(u, t) -> float:
+    """The transforms of the output planes plus the conversion: A + 1
+    Shoup multiplies a residue of every output plane."""
+    A, n = u.shape[-2:]
+    planes = u.numel() // (A * n) * len(t.primes)
+    return ntt_imuls(planes, n) + IMUL_PER_SHOUP * planes * n * (A + 1)
+
+
 def phase_kernels(rng) -> dict:
     ctx = Context(preset("bench_n14"))
     n = ctx.params.poly_degree
-    tabs = ctx.tables(LEVEL)
     ks = ctx.keyswitch_plan(LEVEL)
     mdr = ctx.moddown_rescale_plan(LEVEL)
     out = {}
 
-    x = residues(rng, (B, LEVEL + 1, n), tabs.primes)
-    out["ntt_inv"] = compare(
-        "ntt inverse strip+extra",
-        lambda: ntt_inv(x, tabs, strip_mont=True, extra=ks.dig_inv),
-        lambda: ntt_inv_plain(x, tabs, strip_mont=True, extra=ks.dig_inv),
-        [x, tabs.inv_w, tabs.inv_w_shoup])
-    out["ntt_fwd"] = compare(
-        "ntt forward to_mont",
-        lambda: ntt_fwd(x, tabs, to_mont=True),
-        lambda: ntt_fwd_plain(x, tabs, to_mont=True),
-        [x, tabs.fwd_w, tabs.fwd_w_shoup])
+    k1 = ntt_cases(rng, ctx)
+    for name, (x, t, kw) in k1.items():
+        inv = name.startswith("ntt_inv")
+        out[name] = compare(
+            name, lambda: (ntt_inv if inv else ntt_fwd)(x, t, **kw),
+            lambda: (ntt_inv_plain if inv else ntt_fwd_plain)(x, t, **kw),
+            [x, *ntt_tables(t, inv)],
+            imul=ntt_imuls(x.numel() // t.n, t.n))
 
+    x = k1["ntt_inv"][0]
     ft = ks.foreign_cat_tables
     lift = (ks.lift_w, ks.lift_ws, ks.lift_dig, ft)
     out["ntt_fwd_lifted"] = compare(
@@ -310,14 +396,11 @@ def phase_kernels(rng) -> dict:
         lambda: fused_ntt.ntt_fwd_lifted_plain(x, *lift),
         [x, ft.fwd_w, ft.fwd_w_shoup])
 
-    src = mdr.src_tables.primes
-    u = residues(rng, (B, 2, len(src), n), src)
-    dt = mdr.dst_tables
-    out["ntt_fwd_fbc"] = compare(
-        "ntt_fwd_fbc",
-        lambda: fused_ntt.ntt_fwd_fbc(u, mdr.fbc, dt),
-        lambda: fused_ntt.ntt_fwd_fbc_plain(u, mdr.fbc, dt),
-        [u, dt.fwd_w, dt.fwd_w_shoup])
+    for name, (u, fbc, dt) in fbc_cases(rng, ctx).items():
+        out[name] = compare(
+            name, lambda: fused_ntt.ntt_fwd_fbc(u, fbc, dt),
+            lambda: fused_ntt.ntt_fwd_fbc_plain(u, fbc, dt),
+            [u, *fbc_tensors(fbc, dt)], imul=fbc_imuls(u, dt))
 
     R = len(ks.basis_tables.primes)
     J = ks.num_digits
@@ -343,13 +426,14 @@ def phase_kernels(rng) -> dict:
                             [y, *plan_tensors(plan)])
 
     # K3 and K5 on near-tie α columns of the tail plan, tiled to [B,2,S,N]
+    src, dt = mdr.src_tables.primes, mdr.dst_tables
     cols = near_tie_columns(src, False, 16, seed=1)
     u_tie = from_u32(np.tile(cols, (B, 2, 1, n // cols.shape[1])), "cuda")
     out["ntt_fwd_fbc_ties"] = compare(
         "ntt_fwd_fbc near-tie columns",
         lambda: fused_ntt.ntt_fwd_fbc(u_tie, mdr.fbc, dt),
         lambda: fused_ntt.ntt_fwd_fbc_plain(u_tie, mdr.fbc, dt),
-        [u_tie, dt.fwd_w, dt.fwd_w_shoup])
+        [u_tie, *fbc_tensors(mdr.fbc, dt)], imul=fbc_imuls(u_tie, dt))
     plan = k5["centered_fbc_tail"][0]
     cols = near_tie_columns(src, True, 16, seed=2)
     y_tie = from_u32(np.tile(cols, (B, 2, 1, n // cols.shape[1])), "cuda")
@@ -358,6 +442,43 @@ def phase_kernels(rng) -> dict:
         lambda: plan.apply_plain(y_tie), [y_tie, *plan_tensors(plan)])
     for name, r in out.items():
         log("kernel_vs_plain", kernel=name, **r)
+    return out
+
+
+def phase_clusters(rng, smi: str) -> dict:
+    """K1 and K3 at each phase-4 shape with each cluster size C (CTAs a
+    plane), exact against the plain version, timed eagerly (ms) and cold
+    (graph_ms); ``chosen`` is the C the wrappers pick there."""
+    ctx = Context(preset("bench_n14"))
+    cases = {}
+    for name, (x, t, kw) in ntt_cases(rng, ctx).items():
+        inv = name.startswith("ntt_inv")
+        c1, c2 = ((ntt._inv_constants(t, kw["strip_mont"], kw.get("extra")))
+                  if inv else (t.r if kw["to_mont"] else None, None))
+        cases[name] = (
+            lambda c, x=x, t=t, inv=inv, c1=c1, c2=c2: ntt._ntt_cuda(
+                x, t, inverse=inv, c1=c1, c2=c2, cluster=c),
+            (ntt_inv_plain if inv else ntt_fwd_plain)(x, t, **kw),
+            x.numel() // t.n, t.n)
+    for name, (u, fbc, dt) in fbc_cases(rng, ctx).items():
+        cases[name] = (
+            lambda c, u=u, fbc=fbc, dt=dt: fused_ntt._fbc_cuda(
+                u, fbc, dt, to_mont=True, cluster=c),
+            fused_ntt.ntt_fwd_fbc_plain(u, fbc, dt),
+            u.numel() // u.shape[-2] * len(dt.primes) // dt.n, dt.n)
+    out = {}
+    for name, (fn, want, planes, n) in cases.items():
+        logn = n.bit_length() - 1
+        r = {"planes": planes,
+             "chosen": ntt_passes.cluster_size(logn)}
+        for c in ntt_passes.cluster_sizes(logn):
+            if not torch.equal(fn(c), want):
+                raise AssertionError(f"{name}: cluster {c} differs from "
+                                     "plain")
+            r[c] = {"ms": median_ms(lambda: fn(c)),
+                    "graph_ms": probes.cold_ms(lambda: fn(c))}
+        out[name] = r
+    log("cluster_sweep", cases=out, card=smi)
     return out
 
 
@@ -699,12 +820,13 @@ def phase_host_cost(smi: str) -> None:
 PARTS = tuple("plane_parts_" + v for v in kernel_parts.VARIANTS)
 KERNELS = [
     ("ntt", "hetpu_torch/csrc/ntt.cu", "hetpu/core/mxu_ntt.py:710",
-     ("ntt_inv", "ntt_fwd"), "default"),
+     ("ntt_inv", "ntt_fwd", "ntt_inv_rescale", "ntt_inv_moddown",
+      "ntt_fwd_288"), "default"),
     ("ntt_fwd_lifted", "hetpu_torch/csrc/fused_ntt.cu",
      "hetpu/core/mxu_ntt.py:816", ("ntt_fwd_lifted",), "default"),
     ("ntt_fwd_fbc", "hetpu_torch/csrc/fused_ntt.cu",
-     "hetpu/core/mxu_ntt.py:816", ("ntt_fwd_fbc", "ntt_fwd_fbc_ties"),
-     "default"),
+     "hetpu/core/mxu_ntt.py:816",
+     ("ntt_fwd_fbc", "ntt_fwd_fbc_moddown", "ntt_fwd_fbc_ties"), "default"),
     ("inner_product", "hetpu_torch/csrc/ip_kernel.cu",
      "hetpu/core/ip_kernel.py:75", ("inner_product",), "default"),
     ("centered_fbc", "hetpu_torch/csrc/centered_fbc.cu",
@@ -727,12 +849,17 @@ KERNELS = [
 ]
 
 
+CASE_KEYS = ("shape_in", "shape_out", "ms", "graph_ms", "plain_ms",
+             "bound_ms", "bound_by", "imul_bound_ms", "library_ms")
+
+
 def main() -> int:
     name, smi = phase_device()
     rng = np.random.default_rng(2024)
     phase_build()
     phase_ntt_golden()
     timings = phase_kernels(rng)
+    phase_clusters(rng, smi)
     phase_goldens()
     sess, a, b = phase_main_path(rng)
     phase_time(sess, a, b, smi)
@@ -755,7 +882,9 @@ def main() -> int:
                      "ms": r["ms"], "graph_ms": r["graph_ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
-                     "library_ms": r["library_ms"]})
+                     "library_ms": r["library_ms"],
+                     "cases": {c: {k: timings[c][k] for k in CASE_KEYS
+                                   if k in timings[c]} for c in cases}})
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,9 @@ through device memory:
   * ``ntt_fwd_lifted`` — kernel ``ntt_fwd_lifted``: key-switch digit lift
     Σ_{i<α} y[dig_f·α+i]·lift_w[f,i] mod q_f, then the forward NTT;
   * ``ntt_fwd_fbc`` — kernel ``ntt_fwd_fbc``: centered fast base
-    conversion (f32 α, see :mod:`.rns`), then the forward NTT ×R.
+    conversion (f32 α, see :mod:`.rns`), then the forward NTT ×R in the
+    register passes of the ``ntt`` kernel (:mod:`.ntt_passes`), each CTA
+    of a cluster converting only the columns its threads hold.
 
 Every wrapper checks dtype and contiguity on either device; then a CPU
 tensor takes the plain twin (``*_plain``) and a CUDA tensor launches the
@@ -23,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from . import cuda_lib, rns
+from . import cuda_lib, ntt_passes, rns
 from .modular import add_i64, u32
 from .ntt import NttTables, check_plane_shape, ntt_fwd, ntt_fwd_plain, ntt_inv
 
@@ -111,6 +113,13 @@ def ntt_fwd_fbc(u, fbc: rns.FbcPlan, t: NttTables, *,
                        fbc.ptot_mod_r, fbc.ptot_shoup, t.q)
     if not cuda_lib.on_card(u, fbc.r, t.q):
         return ntt_fwd_fbc_plain(u, fbc, t, to_mont=to_mont)
+    return _fbc_cuda(u, fbc, t, to_mont=to_mont)
+
+
+def _fbc_cuda(u, fbc: rns.FbcPlan, t: NttTables, *, to_mont: bool,
+              cluster: int | None = None) -> torch.Tensor:
+    """Launch the ``ntt_fwd_fbc`` kernel; ``cluster`` (CTAs an output
+    plane) defaults to :func:`ntt_passes.cluster_size`."""
     A = u.shape[-2]
     F = len(t.primes)
     if fbc.phat_mod_r.shape != (A, F) or fbc.p_recip.dtype != torch.float32:
@@ -121,13 +130,16 @@ def ntt_fwd_fbc(u, fbc: rns.FbcPlan, t: NttTables, *,
     rows = u.numel() // (A * t.n)
     out = torch.empty((*u.shape[:-2], F, t.n), dtype=torch.int32,
                       device=u.device)
+    cuda_lib.check_aligned("ntt_fwd_fbc", out)
     if rows == 0:
         return out
+    cluster = ntt_passes.launch_cluster("ntt_fwd_fbc", logn, cluster)
     p = cuda_lib.ptr
     recip = fbc.p_recip.contiguous()
     cuda_lib.launch("ntt_fwd_fbc", "hetpu_ntt_fwd_fbc", u.device,
                     p(u), p(out), rows, A, F, logn, p(fbc.phat_mod_r),
                     p(fbc.phat_shoup), p(recip), p(fbc.ptot_mod_r),
-                    p(fbc.ptot_shoup), p(t.fwd_w), p(t.fwd_w_shoup), p(t.q),
-                    p(t.r) if to_mont else None)
+                    p(fbc.ptot_shoup), p(t.fwd_pass_w),
+                    p(t.fwd_pass_w_shoup), p(t.q),
+                    p(t.r) if to_mont else None, cluster)
     return out

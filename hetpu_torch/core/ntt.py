@@ -5,7 +5,8 @@ the transform computed by the JAX package's Pallas NTT kernels
 (``hetpu/core/mxu_ntt.py`` ``_pallas_call``; ``hetpu/core/pallas_ntt.py``
 ``_fwd_call`` / ``_inv_call``).  The four-step and int8-digit-matrix forms
 there are shaped by the TPU and are bit-exact with this flat transform;
-the CUDA kernel here (``csrc/ntt.cu``) works from the flat twiddles.
+the CUDA kernel here (``csrc/ntt.cu``) runs register-radix passes on the
+same twiddles reordered per pass and per thread (:mod:`.ntt_passes`).
 
   * forward = Cooley-Tukey, natural → bit-reversed order; inverse =
     Gentleman-Sande, bit-reversed → natural, no explicit permutation;
@@ -25,7 +26,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from . import cuda_lib, nt
+from . import cuda_lib, nt, ntt_passes
 from .modular import add_i64, from_u32, shoup_precompute, sub_i64, u32
 
 
@@ -33,9 +34,11 @@ from .modular import add_i64, from_u32, shoup_precompute, sub_i64, u32
 class NttTables:
     """Per-RNS-basis twiddle tables as int32 tensors on one device.
 
-    Shapes: w_* are [L, N]; the n_inv / r constants and q are [L, 1].
-    ``n_inv_rinv`` = N⁻¹·R⁻¹ mod q lets the inverse transform strip
-    Montgomery form for free; ``r`` = R mod q re-enters it."""
+    Shapes: w_* are [L, N]; the *_pass_w* tables (the kernels' per-pass
+    records, :mod:`.ntt_passes`) are [L, ntt_passes.table_size(log2 N)];
+    the n_inv / r constants and q are [L, 1].  ``n_inv_rinv`` = N⁻¹·R⁻¹
+    mod q lets the inverse transform strip Montgomery form for free;
+    ``r`` = R mod q re-enters it."""
 
     n: int
     primes: tuple[int, ...]
@@ -44,6 +47,10 @@ class NttTables:
     fwd_w_shoup: torch.Tensor
     inv_w: torch.Tensor          # ψ^{-br(i)}
     inv_w_shoup: torch.Tensor
+    fwd_pass_w: torch.Tensor     # fwd_w reordered for the kernels' passes
+    fwd_pass_w_shoup: torch.Tensor
+    inv_pass_w: torch.Tensor
+    inv_pass_w_shoup: torch.Tensor
     n_inv: torch.Tensor
     n_inv_shoup: torch.Tensor
     n_inv_rinv: torch.Tensor
@@ -99,6 +106,11 @@ def host_tables(n: int, primes: tuple[int, ...]) -> dict[str, np.ndarray]:
                n_inv_rinv=n_inv_rinv, r=r_col)
     for k in ("fwd_w", "inv_w", "n_inv", "n_inv_rinv", "r"):
         out[f"{k}_shoup"] = shoup_precompute(out[k], qcol)
+    for d, fn in (("fwd", ntt_passes.fwd_table_index),
+                  ("inv", ntt_passes.inv_table_index)):
+        ix = fn(logn)
+        out[f"{d}_pass_w"] = out[f"{d}_w"][:, ix]
+        out[f"{d}_pass_w_shoup"] = out[f"{d}_w_shoup"][:, ix]
     for a in out.values():
         a.setflags(write=False)
     return out
@@ -181,7 +193,7 @@ def _inv_constants(t: NttTables, strip_mont: bool, extra):
 # Dispatching wrappers (CUDA kernel ``ntt`` on the card)
 # ----------------------------------------------------------------------
 
-MIN_LOGN, MAX_LOGN = 10, 15     # the kernel keeps one plane in shared memory
+MIN_LOGN, MAX_LOGN = 10, 15     # a plane fits one cluster's shared memory
 
 
 def check_plane_shape(name: str, x: torch.Tensor, n: int,
@@ -198,7 +210,10 @@ def check_plane_shape(name: str, x: torch.Tensor, n: int,
     return logn
 
 
-def _ntt_cuda(a, t: NttTables, *, inverse: bool, c1, c2) -> torch.Tensor:
+def _ntt_cuda(a, t: NttTables, *, inverse: bool, c1, c2,
+              cluster: int | None = None) -> torch.Tensor:
+    """Launch the ``ntt`` kernel; ``cluster`` (CTAs a plane) defaults to
+    :func:`ntt_passes.cluster_size`."""
     L = len(t.primes)
     cuda_lib.on_card(a, t.q)
     consts = [c for c in (c1, c2) if c is not None]
@@ -209,13 +224,17 @@ def _ntt_cuda(a, t: NttTables, *, inverse: bool, c1, c2) -> torch.Tensor:
                              f"entries for {L} limbs")
     logn = check_plane_shape("ntt", a, t.n, L)
     out = torch.empty_like(a)
+    cuda_lib.check_aligned("ntt", a, out)
     rows = a.numel() // (L * t.n)
     if rows == 0:
         return out
-    w, ws = (t.inv_w, t.inv_w_shoup) if inverse else (t.fwd_w, t.fwd_w_shoup)
+    cluster = ntt_passes.launch_cluster("ntt", logn, cluster)
+    w, ws = ((t.inv_pass_w, t.inv_pass_w_shoup) if inverse
+             else (t.fwd_pass_w, t.fwd_pass_w_shoup))
     p = cuda_lib.ptr
     cuda_lib.launch("ntt", "hetpu_ntt", a.device, p(a), p(out), rows, L,
-                    logn, p(w), p(ws), p(t.q), p(c1), p(c2), int(inverse))
+                    logn, p(w), p(ws), p(t.q), p(c1), p(c2), int(inverse),
+                    cluster)
     return out
 
 

@@ -1,6 +1,6 @@
 // Kernels `ntt_fwd_lifted` and `ntt_fwd_fbc`: a prologue that builds each
 // output plane from several input planes, then the forward NTT of that
-// plane in shared memory (the routine of the `ntt` kernel, ntt_common.cuh).
+// plane.
 //
 // Replaces the JAX package's TPU kernel hetpu/core/mxu_ntt.py
 // `_pallas_call_lift` (:816) in its two forms:
@@ -9,25 +9,31 @@
 //   * corr = true (entered via `ntt_fwd_fbc`, :962): the centered fast base
 //     conversion  acc_f = sum_i shoup(u_i, (P/p_i) mod q_f) - alpha*(P mod q_f)
 //     with alpha = round_half_even(sum_i f32(u_i) * f32(1/p_i)).
+// In both the lifted / converted plane never goes to device memory.
 //
-// Design: one thread block per (row, output prime f).  Each thread
-// accumulates the prologue of its coefficients straight into the shared
-// plane (the inputs are read coalesced; the lifted / converted plane never
-// goes to device memory), then the block runs the forward NTT and stores
-// with the optional x R epilogue.  The lift's short last digit has zero
-// weights past the active primes; its source index is clamped to the last
-// input plane exactly as the reference does (mxu_ntt.py:942-944), so no
-// read leaves the input.  alpha is the chain of fused multiply-adds
+// `ntt_fwd_lifted` (K2): one thread block per (row, output prime f); each
+// thread accumulates the lift of its coefficients into the shared plane,
+// then the block runs the radix-2 shared-memory NTT of ntt_common.cuh.  The
+// lift's short last digit has zero weights past the active primes; its
+// source index is clamped to the last input plane exactly as the reference
+// does (mxu_ntt.py:942-944), so no read leaves the input.
+//
+// `ntt_fwd_fbc` (K3): the register-radix passes of the `ntt` kernel
+// (ntt_passes.cuh), the conversion being the first pass's column loader.
+// Bound on the card: bytes, A source planes read a row (each re-read by the
+// F output planes of its row, mostly from L2) and F planes written; the
+// first design (one CTA a plane, 14 shared-memory stages, one dependent
+// source load a term) ran at ~6% of it.  Now each thread converts the 8
+// columns v + j*N/8 it holds in pass 0, its 8 loads of a source plane
+// issued together; with a cluster of C CTAs a plane, each CTA converts only
+// its N/C columns.  alpha is the chain of fused multiply-adds
 // al = __fmaf_rn(f32(u_i), recip_i, al) for i = 0..A-1 from al = 0, rounded
 // with rintf (half to even): the reference's jitted jnp.sum compiles to
 // exactly this chain.  A multiply and an add rounded separately, or another
 // order, would flip rare near-half roundings and shift a coefficient by P.
-// The explicit intrinsic fuses whatever --fmad says.
-//
-// Bound on the card: the NTT stages as in ntt.cu; the prologue adds A input
-// planes read per output plane (the digit's planes are re-read by each of
-// its F rows, mostly from L2).  Measured times are in PERF.md.
-#include "ntt_common.cuh"
+// The explicit intrinsic fuses whatever --fmad says.  Measured times are
+// in PERF.md.
+#include "ntt_passes.cuh"
 
 namespace {
 
@@ -66,42 +72,76 @@ __global__ void lifted_kernel(const uint32_t* __restrict__ y,
                      qf);
 }
 
-__global__ void fbc_kernel(const uint32_t* __restrict__ u,
-                           uint32_t* __restrict__ out, int A, int F, int logn,
-                           const uint32_t* __restrict__ phat,
-                           const uint32_t* __restrict__ phat_shoup,
-                           const float* __restrict__ recip,
-                           const uint32_t* __restrict__ ptot,
-                           const uint32_t* __restrict__ ptot_shoup,
-                           const uint32_t* __restrict__ w,
-                           const uint32_t* __restrict__ ws,
-                           const uint32_t* __restrict__ q,
-                           const uint32_t* __restrict__ c1) {
-  extern __shared__ uint32_t s[];
-  const int n = 1 << logn;
-  const int f = static_cast<int>(blockIdx.x % F);
-  const size_t row = blockIdx.x / F;
-  const uint32_t qf = q[f];
-  const uint32_t* ur = u + ((row * A) << logn);
-  const uint32_t pm = ptot[f], pms = ptot_shoup[f];
-  for (int k = threadIdx.x; k < n; k += blockDim.x) {
-    uint32_t acc = 0;
-    float al = 0.0f;
-    for (int i = 0; i < A; ++i) {
-      const uint32_t v = ur[(static_cast<size_t>(i) << logn) + k];
-      acc = hetpu::mod_add(
-          acc, hetpu::shoup_mul(v, phat[i * F + f], phat_shoup[i * F + f], qf),
-          qf);
-      al = __fmaf_rn(__int2float_rn(static_cast<int>(v)), recip[i], al);
+// Pass-0 loader of `ntt_fwd_fbc`: the converted residues of columns
+// v + j*cols of output prime f.
+struct FbcLoad {
+  const uint32_t* __restrict__ u;  // the row's A source planes
+  int A, F, f, logn;
+  const uint32_t* __restrict__ phat;
+  const uint32_t* __restrict__ phat_shoup;
+  const float* __restrict__ recip;
+  uint32_t pm, pms, q;
+
+  __device__ __forceinline__ void operator()(uint32_t (&x)[hetpu::passes::kE],
+                                             int v, int cols) const {
+    constexpr int kE = hetpu::passes::kE;
+    float al[kE];
+#pragma unroll
+    for (int j = 0; j < kE; ++j) {
+      x[j] = 0;
+      al[j] = 0.0f;
     }
-    const uint32_t alpha = static_cast<uint32_t>(static_cast<int>(rintf(al)));
-    s[k] = hetpu::mod_sub(acc, hetpu::shoup_mul(alpha, pm, pms, qf), qf);
+    for (int i = 0; i < A; ++i) {
+      const uint32_t* ui = u + (static_cast<size_t>(i) << logn) + v;
+      uint32_t y[kE];
+#pragma unroll
+      for (int j = 0; j < kE; ++j) y[j] = __ldg(ui + j * cols);
+      const uint32_t w = __ldg(phat + i * F + f);
+      const uint32_t ws = __ldg(phat_shoup + i * F + f);
+      const float rc = __ldg(recip + i);
+#pragma unroll
+      for (int j = 0; j < kE; ++j) {
+        x[j] = hetpu::mod_add(x[j], hetpu::shoup_mul(y[j], w, ws, q), q);
+        al[j] = __fmaf_rn(__int2float_rn(static_cast<int>(y[j])), rc, al[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kE; ++j) {
+      const uint32_t alpha =
+          static_cast<uint32_t>(static_cast<int>(rintf(al[j])));
+      x[j] = hetpu::mod_sub(x[j], hetpu::shoup_mul(alpha, pm, pms, q), q);
+    }
   }
-  __syncthreads();
-  const size_t toff = static_cast<size_t>(f) << logn;
-  hetpu::ntt_fwd_smem(s, logn, w + toff, ws + toff, qf);
-  hetpu::store_plane(s, out + ((row * F + f) << logn), logn, c1, nullptr, f,
-                     qf);
+};
+
+template <int C>
+__global__ void __launch_bounds__(hetpu::passes::kThreads,
+                                  hetpu::passes::kMinCtas)
+    fbc_kernel(const uint32_t* __restrict__ u, uint32_t* __restrict__ out,
+               int A, int F, int logn, const uint32_t* __restrict__ phat,
+               const uint32_t* __restrict__ phat_shoup,
+               const float* __restrict__ recip,
+               const uint32_t* __restrict__ ptot,
+               const uint32_t* __restrict__ ptot_shoup,
+               const uint32_t* __restrict__ tw,
+               const uint32_t* __restrict__ tws,
+               const uint32_t* __restrict__ q,
+               const uint32_t* __restrict__ c1) {
+  extern __shared__ uint32_t s[];
+  const size_t plane = blockIdx.x / C;
+  const int f = static_cast<int>(plane % F);
+  const size_t row = plane / F;
+  const uint32_t qf = q[f];
+  const size_t toff = static_cast<size_t>(f) * hetpu::passes::table_size(logn);
+  uint32_t c = 0, cs = 0;
+  if (c1 != nullptr) {
+    c = c1[f];
+    cs = hetpu::shoup_of(c, qf);
+  }
+  const FbcLoad load{u + ((row * A) << logn), A, F, f, logn, phat,
+                     phat_shoup, recip, ptot[f], ptot_shoup[f], qf};
+  hetpu::passes::fwd_plane<C>(s, logn, tw + toff, tws + toff, qf, load,
+                              out + (plane << logn), c1 != nullptr, c, cs);
 }
 
 }  // namespace
@@ -130,15 +170,22 @@ extern "C" int hetpu_ntt_fwd_fbc(const uint32_t* u, uint32_t* out, int rows,
                                  const uint32_t* ptot_shoup,
                                  const uint32_t* w, const uint32_t* ws,
                                  const uint32_t* q, const uint32_t* c1,
-                                 cudaStream_t stream) {
-  const size_t smem = hetpu::plane_smem(logn);
-  cudaError_t err = cudaFuncSetAttribute(
-      fbc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+                                 int cluster, cudaStream_t stream) {
+  using hetpu::passes::launch_planes;
+  const unsigned planes = static_cast<unsigned>(rows) * F;
+  cudaError_t err;
+#define HETPU_FBC_LAUNCH(C)                                                 \
+  launch_planes<C>(fbc_kernel<C>, false, planes, logn, stream, u, out, A, \
+                   F, logn, phat, phat_shoup, recip, ptot, ptot_shoup, w, \
+                   ws, q, c1)
+  switch (cluster) {
+    case 1: err = HETPU_FBC_LAUNCH(1); break;
+    case 2: err = HETPU_FBC_LAUNCH(2); break;
+    case 4: err = HETPU_FBC_LAUNCH(4); break;
+    case 8: err = HETPU_FBC_LAUNCH(8); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef HETPU_FBC_LAUNCH
   if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned blocks = static_cast<unsigned>(rows) * F;
-  fbc_kernel<<<blocks, hetpu::plane_threads(logn), smem, stream>>>(
-      u, out, A, F, logn, phat, phat_shoup, recip, ptot, ptot_shoup, w, ws, q,
-      c1);
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,46 +6,75 @@
 // into int8 digits for the TPU's matrix unit, and computes the transform of
 // hetpu/core/pallas_ntt.py `_fwd_call` (:137) and `_inv_call` (:178).
 //
-// Design: one thread block per (row, limb) plane.  The whole plane lives in
-// dynamic shared memory (N * 4 bytes: 64 KB at N = 2^14, so the kernel
-// raises its shared-memory limit above the 48 KB default), so device
-// memory sees one read and one write of the plane; the log2(N) butterfly
-// stages run out of shared memory with a __syncthreads between stages.
-// Twiddles and their Shoup companions are read from the flat [L, N] tables
-// (cached in L1/L2).  The epilogue is one Shoup multiply per element by
-// c1 (* c2) mod q: R (to Montgomery form), N^-1, N^-1 R^-1 (strip
-// Montgomery form) or N^-1 R^-1 * extra.
+// Bound on the card: device memory moves 8 bytes a residue (one read, one
+// write; 3.3 us for [8,9,N=2^14] at 3.35 TB/s, twiddle tables included),
+// the butterflies need 3 integer multiplies each (1.7 us for the same
+// shape at 64 INT32 lanes x 132 SMs x 1.98 GHz), so bytes bind.  The first
+// design (one 1024-thread CTA a plane, 14 radix-2 stages each a shared-
+// memory round trip and a barrier, two dependent twiddle loads per
+// butterfly) ran at ~6% of that bound: latency-bound, with at most one SM
+// a plane busy (16 of 132 SMs at the rescale's [8,2,1,N]).  This design is
+// bound by integer issue instead: a butterfly is 3 multiplies and about 8
+// adds and mins, so one instruction fewer a conditional subtract
+// (ntt_common.cuh) showed in its time.
 //
-// Bound on the card: the 14 shared-memory stages at N = 2^14 (about 115
-// thousand butterflies per plane, each a Shoup multiply and two modular
-// adds) plus the block barriers between them; device-memory traffic is
-// 8 bytes per element.  Measured times are in PERF.md.
-#include "ntt_common.cuh"
+// Design (ntt_passes.cuh): ceil(logn / 3) register-radix passes of 8
+// residues a thread, one barrier between passes; the twiddles of a pass in
+// one record a thread, copied into shared memory (cp.async) while the
+// first pass runs; 16-byte plane loads (inverse) and stores (forward); at
+// most 40 registers a thread, so that an SM holds 1536 threads; a plane
+// split over a cluster of C CTAs through distributed shared memory, so
+// that a launch of few planes still fills the card (the wrapper takes the
+// smallest CTAs, core/ntt_passes.py cluster_size).  The epilogue is one
+// Shoup multiply a residue by c1 (* c2) mod q: R (to Montgomery form),
+// N^-1, N^-1 R^-1 (strip Montgomery form) or N^-1 R^-1 * extra.  Measured
+// times are in PERF.md.
+#include "ntt_passes.cuh"
 
 namespace {
 
-__global__ void ntt_kernel(const uint32_t* __restrict__ x,
-                           uint32_t* __restrict__ out, int L, int logn,
-                           const uint32_t* __restrict__ w,
-                           const uint32_t* __restrict__ ws,
-                           const uint32_t* __restrict__ q,
-                           const uint32_t* __restrict__ c1,
-                           const uint32_t* __restrict__ c2, int inverse) {
+using namespace hetpu::passes;
+
+template <int C, bool kInverse>
+__global__ void __launch_bounds__(kThreads, kMinCtas)
+    ntt_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
+               int L, int logn, const uint32_t* __restrict__ tw,
+               const uint32_t* __restrict__ tws,
+               const uint32_t* __restrict__ q,
+               const uint32_t* __restrict__ c1,
+               const uint32_t* __restrict__ c2) {
   extern __shared__ uint32_t s[];
-  const int n = 1 << logn;
-  const size_t plane = blockIdx.x;
+  const size_t plane = blockIdx.x / C;
   const int l = static_cast<int>(plane % L);
   const uint32_t ql = q[l];
+  const size_t toff = static_cast<size_t>(l) * table_size(logn);
+  uint32_t c = 0, cs = 0;
+  if (c1 != nullptr) {
+    c = c1[l];
+    if (c2 != nullptr) c = hetpu::mul_mod(c, c2[l], ql);
+    cs = hetpu::shoup_of(c, ql);
+  }
   const uint32_t* xp = x + (plane << logn);
-  const uint32_t* wl = w + (static_cast<size_t>(l) << logn);
-  const uint32_t* wsl = ws + (static_cast<size_t>(l) << logn);
-  for (int k = threadIdx.x; k < n; k += blockDim.x) s[k] = xp[k];
-  __syncthreads();
-  if (inverse)
-    hetpu::ntt_inv_smem(s, logn, wl, wsl, ql);
+  uint32_t* op = out + (plane << logn);
+  if constexpr (kInverse)
+    inv_plane<C>(s, logn, tw + toff, tws + toff, ql, xp, op, c1 != nullptr,
+                 c, cs);
   else
-    hetpu::ntt_fwd_smem(s, logn, wl, wsl, ql);
-  hetpu::store_plane(s, out + (plane << logn), logn, c1, c2, l, ql);
+    fwd_plane<C>(s, logn, tw + toff, tws + toff, ql, PlaneLoad{xp}, op,
+                 c1 != nullptr, c, cs);
+}
+
+template <int C>
+cudaError_t launch_ntt(bool inverse, unsigned planes, int logn,
+                       cudaStream_t stream, const uint32_t* x, uint32_t* out,
+                       int L, const uint32_t* w, const uint32_t* ws,
+                       const uint32_t* q, const uint32_t* c1,
+                       const uint32_t* c2) {
+  return inverse
+             ? launch_planes<C>(ntt_kernel<C, true>, true, planes, logn,
+                                stream, x, out, L, logn, w, ws, q, c1, c2)
+             : launch_planes<C>(ntt_kernel<C, false>, false, planes, logn,
+                                stream, x, out, L, logn, w, ws, q, c1, c2);
 }
 
 }  // namespace
@@ -53,15 +82,31 @@ __global__ void ntt_kernel(const uint32_t* __restrict__ x,
 extern "C" int hetpu_ntt(const uint32_t* x, uint32_t* out, int rows, int L,
                          int logn, const uint32_t* w, const uint32_t* ws,
                          const uint32_t* q, const uint32_t* c1,
-                         const uint32_t* c2, int inverse, cudaStream_t stream) {
-  const size_t smem = hetpu::plane_smem(logn);
-  cudaError_t err = cudaFuncSetAttribute(
-      ntt_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+                         const uint32_t* c2, int inverse, int cluster,
+                         cudaStream_t stream) {
   const unsigned planes = static_cast<unsigned>(rows) * L;
-  ntt_kernel<<<planes, hetpu::plane_threads(logn), smem, stream>>>(
-      x, out, L, logn, w, ws, q, c1, c2, inverse);
+  cudaError_t err;
+  switch (cluster) {
+    case 1:
+      err = launch_ntt<1>(inverse, planes, logn, stream, x, out, L, w, ws, q,
+                          c1, c2);
+      break;
+    case 2:
+      err = launch_ntt<2>(inverse, planes, logn, stream, x, out, L, w, ws, q,
+                          c1, c2);
+      break;
+    case 4:
+      err = launch_ntt<4>(inverse, planes, logn, stream, x, out, L, w, ws, q,
+                          c1, c2);
+      break;
+    case 8:
+      err = launch_ntt<8>(inverse, planes, logn, stream, x, out, L, w, ws, q,
+                          c1, c2);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

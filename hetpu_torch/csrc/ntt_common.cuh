@@ -1,12 +1,16 @@
 // Device routines shared by the package's kernels (ntt.cu, fused_ntt.cu,
-// ip_kernel.cu): 32-bit modular arithmetic and the negacyclic NTT of one
-// plane held in shared memory.
+// ip_kernel.cu, ntt_passes.cuh): 32-bit modular arithmetic, and the
+// radix-2 shared-memory forward NTT of one plane that the `ntt_fwd_lifted`
+// kernel runs (the `ntt` and `ntt_fwd_fbc` kernels run ntt_passes.cuh).
 //
 // Residues are canonical in [0, q) with q < 2^31, so every sum and every
 // Shoup remainder fits 32 bits.  Shoup multiply by a precomputed constant
 // (w, ws = floor(w * 2^32 / q)) is exact for any 32-bit x, with one
 // __umulhi and one conditional subtract: the same canonical result as the
 // reference's 16-bit-emulated form on the TPU, with no emulation needed.
+// Each conditional subtract is an unsigned min (when no subtract is due,
+// the difference wraps above the value): one instruction fewer than a
+// compare and a select, in kernels bound by integer issue.
 #pragma once
 
 #include <cstdint>
@@ -18,18 +22,19 @@ __device__ __forceinline__ uint32_t shoup_mul(uint32_t x, uint32_t w,
                                               uint32_t ws, uint32_t q) {
   const uint32_t qe = __umulhi(x, ws);
   const uint32_t r = x * w - qe * q;  // in [0, 2q), mod 2^32 arithmetic
-  return r >= q ? r - q : r;
+  return min(r, r - q);
 }
 
 __device__ __forceinline__ uint32_t mod_add(uint32_t a, uint32_t b,
                                             uint32_t q) {
   const uint32_t s = a + b;
-  return s >= q ? s - q : s;
+  return min(s, s - q);
 }
 
 __device__ __forceinline__ uint32_t mod_sub(uint32_t a, uint32_t b,
                                             uint32_t q) {
-  return a >= b ? a - b : a + (q - b);
+  const uint32_t d = a - b;
+  return min(d, d + q);
 }
 
 // floor(c * 2^32 / q): the Shoup companion of a per-limb constant c < q,
@@ -63,29 +68,6 @@ __device__ __forceinline__ void ntt_fwd_smem(uint32_t* s, int logn,
       const uint32_t v = shoup_mul(s[i1], w[m + i], ws[m + i], q);
       s[i0] = mod_add(u, v, q);
       s[i1] = mod_sub(u, v, q);
-    }
-    __syncthreads();
-  }
-}
-
-// Inverse negacyclic NTT (bit-reversed → natural order), Gentleman-Sande,
-// without the final N^-1 scaling (folded into the epilogue constant).
-__device__ __forceinline__ void ntt_inv_smem(uint32_t* s, int logn,
-                                             const uint32_t* __restrict__ w,
-                                             const uint32_t* __restrict__ ws,
-                                             uint32_t q) {
-  const int nb = 1 << (logn - 1);
-  int log_half = 0;
-  for (int m = 1 << (logn - 1); m >= 1; m >>= 1, ++log_half) {
-    const int half_mask = (1 << log_half) - 1;
-    for (int k = threadIdx.x; k < nb; k += blockDim.x) {
-      const int i = k >> log_half;
-      const int i0 = (i << (log_half + 1)) + (k & half_mask);
-      const int i1 = i0 + (1 << log_half);
-      const uint32_t u = s[i0];
-      const uint32_t v = s[i1];
-      s[i0] = mod_add(u, v, q);
-      s[i1] = shoup_mul(mod_sub(u, v, q), w[m + i], ws[m + i], q);
     }
     __syncthreads();
   }
