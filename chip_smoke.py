@@ -20,17 +20,16 @@ run exits non-zero without a result line):
      replayed from a CUDA graph with L2 flushed before it (graph_ms, median
      of 10: the device's time alone, inputs from device memory) and the
      least time the card could take (bytes read once and written once over
-     3.35 TB/s, or for K1 and K3 the 32-bit multiplies of their Shoup
-     products over 64 lanes an SM at the SM clock nvidia-smi reports as
-     clocks.max.sm, where larger); K1 also at the rescale's one-limb
-     INTT [8,2,1,N], the mod-down INTT [8,2,5,N] and the probes' 288
-     planes [32,9,N], K3 at the tail
+     3.35 TB/s, or for K1 and K3 the 32-bit multiplies they need over 64
+     lanes an SM at the SM clock nvidia-smi reports as clocks.max.sm,
+     where larger: 3 a Shoup product of the butterflies and epilogue, and
+     for K3's conversion one a term and one reduction a residue); K1 also
+     at the rescale's one-limb INTT [8,2,1,N], the mod-down INTT
+     [8,2,5,N] and the probes' 288 planes [32,9,N], K3 at the tail
      [8,2,6,N]→[8,2,8,N] and the mod-down [8,2,5,N]→[8,2,9,N];
      K3 and K5 also on near-tie α columns built here for the bench_n14
      tail plan (columns where an fma chain and a multiply-then-add chain
-     round α differently); then K1 and K3 at the same shapes with each
-     cluster size C (CTAs a plane), exact, eager and cold, beside the C
-     the wrappers choose (the ``cluster_sweep`` line);
+     round α differently);
   5. goldens — Session "test_dnum" (seed 0x33) on the card:
      multiply_relin_rescale on golden_pins fused_a/fused_b = fused_out and
      rotate by 1 = fused_rot; golden_n14 rs_n14 through Evaluator.rescale;
@@ -63,7 +62,8 @@ run exits non-zero without a result line):
      graph_ms (plain_graph_ms); then every probe through its entry point
      (hetpu_torch.probes.run: eager and CUDA-graph chains) and
      kernel_micro on phase 6's session; last, the host's time per call of
-     each probe wrapper on one plane (host clock).
+     each probe wrapper on one plane and of K1 at the rescale's INTT
+     [8,2,1,N] and K3 at the tail (host clock).
 
 Launch counts are zeroed just before each path and read just after it
 (a CUDA graph's replay counts the kernels its capture recorded); the
@@ -74,6 +74,8 @@ and cold-L2 ``graph_ms``, the library call's eager ms, and under
 line is
 {"ok": true, "device": {"platform": "gpu", ...}}.
 Imports only hetpu_torch, torch and numpy (no JAX, no hetpu).
+``kernel_ab.py`` reuses its K1/K3 cases, host timing and profile
+reduction to compare two checkouts.
 """
 
 from __future__ import annotations
@@ -88,7 +90,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from hetpu_torch.core import cuda_lib, fused_ntt, ip_kernel, ntt, ntt_passes
+from hetpu_torch.core import cuda_lib, fused_ntt, ip_kernel
 from hetpu_torch.core.centered_fbc import CenteredFbcPlan
 from hetpu_torch.core.ciphertext import Ciphertext
 from hetpu_torch.core.context import Context
@@ -115,7 +117,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 INT8_OPS_PER_S = 1.979e15      # H100 SXM int8 tensor cores, dense (data sheet)
 INT32_LANES_PER_SM = 64        # Hopper SM: 32-bit integer multiply lanes
 IMUL_PER_SHOUP = 3             # __umulhi, x*w, qe*q
-CLUSTERS = (1, 2, 4, 8)        # CTAs a plane, swept by phase_clusters
+HOST_CALLS = 200               # calls enqueued back to back by host_us
 imul_per_s = 0.0               # set by phase_device from the SM clock
 
 
@@ -364,11 +366,13 @@ def ntt_imuls(planes: int, n: int) -> float:
 
 
 def fbc_imuls(u, t) -> float:
-    """The transforms of the output planes plus the conversion: A + 1
-    Shoup multiplies a residue of every output plane."""
+    """The transforms of the output planes plus the least the conversion
+    needs: for every output residue its A + 1 products (the terms
+    u_i·phat_i and α·P) at one wide multiply each, accumulated in 64 bits,
+    and one Shoup-sized reduction."""
     A, n = u.shape[-2:]
     planes = u.numel() // (A * n) * len(t.primes)
-    return ntt_imuls(planes, n) + IMUL_PER_SHOUP * planes * n * (A + 1)
+    return ntt_imuls(planes, n) + planes * n * (A + 1 + IMUL_PER_SHOUP)
 
 
 def phase_kernels(rng) -> dict:
@@ -442,43 +446,6 @@ def phase_kernels(rng) -> dict:
         lambda: plan.apply_plain(y_tie), [y_tie, *plan_tensors(plan)])
     for name, r in out.items():
         log("kernel_vs_plain", kernel=name, **r)
-    return out
-
-
-def phase_clusters(rng, smi: str) -> dict:
-    """K1 and K3 at each phase-4 shape with each cluster size C (CTAs a
-    plane), exact against the plain version, timed eagerly (ms) and cold
-    (graph_ms); ``chosen`` is the C the wrappers pick there."""
-    ctx = Context(preset("bench_n14"))
-    cases = {}
-    for name, (x, t, kw) in ntt_cases(rng, ctx).items():
-        inv = name.startswith("ntt_inv")
-        c1, c2 = ((ntt._inv_constants(t, kw["strip_mont"], kw.get("extra")))
-                  if inv else (t.r if kw["to_mont"] else None, None))
-        cases[name] = (
-            lambda c, x=x, t=t, inv=inv, c1=c1, c2=c2: ntt._ntt_cuda(
-                x, t, inverse=inv, c1=c1, c2=c2, cluster=c),
-            (ntt_inv_plain if inv else ntt_fwd_plain)(x, t, **kw),
-            x.numel() // t.n, t.n)
-    for name, (u, fbc, dt) in fbc_cases(rng, ctx).items():
-        cases[name] = (
-            lambda c, u=u, fbc=fbc, dt=dt: fused_ntt._fbc_cuda(
-                u, fbc, dt, to_mont=True, cluster=c),
-            fused_ntt.ntt_fwd_fbc_plain(u, fbc, dt),
-            u.numel() // u.shape[-2] * len(dt.primes) // dt.n, dt.n)
-    out = {}
-    for name, (fn, want, planes, n) in cases.items():
-        logn = n.bit_length() - 1
-        r = {"planes": planes,
-             "chosen": ntt_passes.cluster_size(logn)}
-        for c in ntt_passes.cluster_sizes(logn):
-            if not torch.equal(fn(c), want):
-                raise AssertionError(f"{name}: cluster {c} differs from "
-                                     "plain")
-            r[c] = {"ms": median_ms(lambda: fn(c)),
-                    "graph_ms": probes.cold_ms(lambda: fn(c))}
-        out[name] = r
-    log("cluster_sweep", cases=out, card=smi)
     return out
 
 
@@ -657,39 +624,48 @@ KERNEL_OF = (("centered_fbc_kernel", "centered_fbc"),
              ("ntt_kernel", "ntt"))
 
 
-def phase_profile(sess, cent, ct, diags, act, smi: str) -> None:
+def profile_calls(fn, calls: int = PROFILE_ITERS) -> dict:
+    """torch.profiler over ``calls`` calls of ``fn`` after 3 warm-ups, per
+    call: wall µs (profiler on), device µs of this package's kernels
+    (``ours``, by KERNEL_OF) and of the plain torch kernels (``plain``, by
+    name), and the device kernels launched."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for mode, s in (("default", sess), ("centered_fbc", cent)):
-        for _ in range(3):
-            pipeline.infer_step(s, ct, diags, act)
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(PROFILE_ITERS):
-                pipeline.infer_step(s, ct, diags, act)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        ours, plain, n_kernels = {}, {}, 0
-        for e in prof.key_averages():
-            if e.device_type != DeviceType.CUDA:
-                continue
-            us = getattr(e, "self_device_time_total", 0.0)
-            n_kernels += e.count
-            name = next((k for frag, k in KERNEL_OF if frag in e.key), None)
-            bucket = ours if name else plain
-            key = name or e.key[:60]
-            bucket[key] = bucket.get(key, 0.0) + us / PROFILE_ITERS
-        device_us = sum(ours.values()) + sum(plain.values())
-        top = dict(sorted(plain.items(), key=lambda kv: -kv[1])[:8])
+        wall_us = (time.perf_counter() - t0) * 1e6
+    ours, plain, n_kernels = {}, {}, 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", 0.0)
+        n_kernels += e.count
+        name = next((k for frag, k in KERNEL_OF if frag in e.key), None)
+        bucket = ours if name else plain
+        key = name or e.key[:60]
+        bucket[key] = bucket.get(key, 0.0) + us / calls
+    return {"wall_us": wall_us / calls, "ours": ours, "plain": plain,
+            "device_us": sum(ours.values()) + sum(plain.values()),
+            "kernels": n_kernels / calls}
+
+
+def phase_profile(sess, cent, ct, diags, act, smi: str) -> None:
+    for mode, s in (("default", sess), ("centered_fbc", cent)):
+        r = profile_calls(lambda: pipeline.infer_step(s, ct, diags, act))
+        top = dict(sorted(r["plain"].items(), key=lambda kv: -kv[1])[:8])
         log("profile", op="infer_step", mode=mode, preset="bench_n14",
-            batch=B, calls=PROFILE_ITERS,
-            wall_us_per_call=wall_us / PROFILE_ITERS,
-            device_us_per_call=device_us,
-            device_busy_share=device_us * PROFILE_ITERS / wall_us,
-            device_kernels_per_call=n_kernels / PROFILE_ITERS,
-            our_kernels_us=ours, plain_us=sum(plain.values()),
+            batch=B, calls=PROFILE_ITERS, wall_us_per_call=r["wall_us"],
+            device_us_per_call=r["device_us"],
+            device_busy_share=r["device_us"] / r["wall_us"],
+            device_kernels_per_call=r["kernels"],
+            our_kernels_us=r["ours"], plain_us=sum(r["plain"].values()),
             plain_top_us=top, card=smi)
 
 
@@ -788,31 +764,42 @@ def phase_probes(sess, smi: str) -> dict:
     return launches
 
 
-def phase_host_cost(smi: str) -> None:
-    """Host seconds per call of each wrapper on one small plane, on the
-    host clock: 200 calls enqueued back to back, then one synchronise (the
-    card's work per call is far shorter than the host's)."""
+def host_us(fn, calls: int = HOST_CALLS) -> float:
+    """Host µs per call of ``fn`` on the host clock: ``calls`` calls
+    enqueued back to back after one call and a synchronise, then one
+    synchronise outside the clock.  The card's work per call must be
+    shorter than the host's, or the clock reads the card."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def phase_host_cost(rng, smi: str) -> None:
+    """Host µs per call of each probe wrapper on one small plane, of K1 at
+    the rescale's INTT [8,2,1,N] and of K3 at the tail."""
     x = copy_probe.planes_u32((8, 1, 128, 128), device="cuda")
     xp, wp, tw, tws = kernel_parts.make_inputs(1, 1, device="cuda")
     w, a = dot.int8_mxu_inputs(1, device="cuda")
+    ctx = Context(preset("bench_n14"))
+    xr, tr, kw = ntt_cases(rng, ctx)["ntt_inv_rescale"]
+    u, fbc, dt = fbc_cases(rng, ctx)["ntt_fwd_fbc"]
     calls = {"torch x ^ 1": lambda: x ^ 1,
              "torch x.clone()": lambda: x.clone(),
              "copy_planes": lambda: copy_probe.copy_planes(x, 8),
              "muladd_u32": lambda: overhead2.muladd_u32(x),
              "dot_i8": lambda: dot.dot_i8(w, a),
              "plane_parts": lambda: kernel_parts.plane_parts("copy", xp, wp,
-                                                            tw, tws)}
-    us = {}
-    for name, fn in calls.items():
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(200):
-            fn()
-        t1 = time.perf_counter()
-        torch.cuda.synchronize()
-        us[name] = (t1 - t0) / 200 * 1e6
-    log("host_cost", host_us_per_call=us, card=smi)
+                                                            tw, tws),
+             "ntt [8,2,1,N]": lambda: ntt_inv(xr, tr, **kw),
+             "ntt_fwd_fbc [8,2,6,N]": lambda: fused_ntt.ntt_fwd_fbc(u, fbc,
+                                                                    dt)}
+    log("host_cost", host_us_per_call={k: host_us(fn)
+                                       for k, fn in calls.items()}, card=smi)
 
 
 # name, source, replaced TPU kernel, timing cases (first = the row's
@@ -859,7 +846,6 @@ def main() -> int:
     phase_build()
     phase_ntt_golden()
     timings = phase_kernels(rng)
-    phase_clusters(rng, smi)
     phase_goldens()
     sess, a, b = phase_main_path(rng)
     phase_time(sess, a, b, smi)
@@ -870,7 +856,7 @@ def main() -> int:
     launches = {"default": default["launches"],
                 "centered": centered["launches"],
                 "probes": phase_probes(sess, smi)}
-    phase_host_cost(smi)
+    phase_host_cost(rng, smi)
     rows = []
     for kname, src, replaces, cases, path in KERNELS:
         r = timings[cases[0]]

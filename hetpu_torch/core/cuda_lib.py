@@ -49,15 +49,15 @@ _recorded = None           # counts of the capture in progress (recording)
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 _SIGNATURES = {
-    # x, out, rows, L, logn, w, ws, q, c1, c2, inverse, cluster, stream
-    "hetpu_ntt": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P),
+    # x, out, rows, L, logn, w, ws, q, c1, c2, inverse, stream
+    "hetpu_ntt": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P),
     # y, out, rows, Ly, F, A, logn, lw, lws, dig, w, ws, q, c1, stream
     "hetpu_ntt_fwd_lifted": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                              _P, _P, _P, _P),
     # u, out, rows, A, F, logn, phat, phat_shoup, recip, ptot,
-    # ptot_shoup, w, ws, q, c1, cluster, stream
+    # ptot_shoup, w, ws, q, c1, stream
     "hetpu_ntt_fwd_fbc": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                          _P, _P, _P, _I, _P),
+                          _P, _P, _P, _P),
     # ext, k, ks, q, out, B, J, R, n, stream
     "hetpu_inner_product": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # y, out, rows, S, F, n, q_src, recip, c, cs, pm, pms, ex, exs, q_dst,

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from . import cuda_lib, ntt_passes, rns
+from . import cuda_lib, rns
 from .modular import add_i64, u32
 from .ntt import NttTables, check_plane_shape, ntt_fwd, ntt_fwd_plain, ntt_inv
 
@@ -116,10 +116,10 @@ def ntt_fwd_fbc(u, fbc: rns.FbcPlan, t: NttTables, *,
     return _fbc_cuda(u, fbc, t, to_mont=to_mont)
 
 
-def _fbc_cuda(u, fbc: rns.FbcPlan, t: NttTables, *, to_mont: bool,
-              cluster: int | None = None) -> torch.Tensor:
-    """Launch the ``ntt_fwd_fbc`` kernel; ``cluster`` (CTAs an output
-    plane) defaults to :func:`ntt_passes.cluster_size`."""
+def _fbc_cuda(u, fbc: rns.FbcPlan, t: NttTables, *,
+              to_mont: bool) -> torch.Tensor:
+    """Launch the ``ntt_fwd_fbc`` kernel (an output plane over
+    :func:`ntt_passes.cluster_size` CTAs, fixed by N)."""
     A = u.shape[-2]
     F = len(t.primes)
     if fbc.phat_mod_r.shape != (A, F) or fbc.p_recip.dtype != torch.float32:
@@ -133,7 +133,6 @@ def _fbc_cuda(u, fbc: rns.FbcPlan, t: NttTables, *, to_mont: bool,
     cuda_lib.check_aligned("ntt_fwd_fbc", out)
     if rows == 0:
         return out
-    cluster = ntt_passes.launch_cluster("ntt_fwd_fbc", logn, cluster)
     p = cuda_lib.ptr
     recip = fbc.p_recip.contiguous()
     cuda_lib.launch("ntt_fwd_fbc", "hetpu_ntt_fwd_fbc", u.device,
@@ -141,5 +140,5 @@ def _fbc_cuda(u, fbc: rns.FbcPlan, t: NttTables, *, to_mont: bool,
                     p(fbc.phat_shoup), p(recip), p(fbc.ptot_mod_r),
                     p(fbc.ptot_shoup), p(t.fwd_pass_w),
                     p(t.fwd_pass_w_shoup), p(t.q),
-                    p(t.r) if to_mont else None, cluster)
+                    p(t.r) if to_mont else None)
     return out

@@ -210,10 +210,9 @@ def check_plane_shape(name: str, x: torch.Tensor, n: int,
     return logn
 
 
-def _ntt_cuda(a, t: NttTables, *, inverse: bool, c1, c2,
-              cluster: int | None = None) -> torch.Tensor:
-    """Launch the ``ntt`` kernel; ``cluster`` (CTAs a plane) defaults to
-    :func:`ntt_passes.cluster_size`."""
+def _ntt_cuda(a, t: NttTables, *, inverse: bool, c1, c2) -> torch.Tensor:
+    """Launch the ``ntt`` kernel (a plane over
+    :func:`ntt_passes.cluster_size` CTAs, fixed by N)."""
     L = len(t.primes)
     cuda_lib.on_card(a, t.q)
     consts = [c for c in (c1, c2) if c is not None]
@@ -228,13 +227,11 @@ def _ntt_cuda(a, t: NttTables, *, inverse: bool, c1, c2,
     rows = a.numel() // (L * t.n)
     if rows == 0:
         return out
-    cluster = ntt_passes.launch_cluster("ntt", logn, cluster)
     w, ws = ((t.inv_pass_w, t.inv_pass_w_shoup) if inverse
              else (t.fwd_pass_w, t.fwd_pass_w_shoup))
     p = cuda_lib.ptr
     cuda_lib.launch("ntt", "hetpu_ntt", a.device, p(a), p(out), rows, L,
-                    logn, p(w), p(ws), p(t.q), p(c1), p(c2), int(inverse),
-                    cluster)
+                    logn, p(w), p(ws), p(t.q), p(c1), p(c2), int(inverse))
     return out
 
 

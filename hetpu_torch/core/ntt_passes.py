@@ -5,9 +5,11 @@ N = 2^logn plane as ⌈logn / 3⌉ register passes: each thread holds E = 8
 residues and runs three butterfly stages on them in registers, and the
 plane goes through shared memory only between passes.  A plane may be
 split over a thread-block cluster of C CTAs (C ≤ 8), each holding N/C
-residues, one thread per E of them; only the first pass of the forward transform and the last of
-the inverse (the stages of stride ≥ N/8) read or write another CTA's
-shared memory.
+residues, one thread per E of them; only the first pass of the forward
+transform and the last of the inverse (the stages of stride ≥ N/8) read
+or write another CTA's shared memory.  The kernels launch C =
+:func:`cluster_size` (N); the schedule, and its plain twins, hold for any
+C of :data:`CLUSTERS` with N/C ≥ :data:`MIN_CTA`.
 
 Forward (Cooley-Tukey, natural → bit-reversed order):
   * pass 0: stages 0..2; thread v (of N/8) holds x[v + j·N/8], j < 8,
@@ -59,8 +61,8 @@ if TYPE_CHECKING:
 
 LOG_E = 3
 E = 1 << LOG_E                 # residues a thread holds
-CLUSTERS = (1, 2, 4, 8)        # CTAs a plane may be split over
-MIN_CTA, MAX_CTA = 256, 4096   # residues a CTA holds: 32 to 512 threads
+CLUSTERS = (1, 2, 4, 8)        # CTAs the schedule may split a plane over
+MIN_CTA = 256                  # residues a CTA holds at least: 32 threads
 
 
 def passes(logn: int) -> int:
@@ -86,31 +88,13 @@ def swizzle(i):
     return i ^ ((i >> LOG_E) & 31)
 
 
-def cluster_sizes(logn: int) -> tuple[int, ...]:
-    """Cluster sizes the kernels take at this N (one thread per E residues
-    of a CTA; the schedule itself holds for any C of CLUSTERS with N/C ≥
-    MIN_CTA)."""
-    return tuple(c for c in CLUSTERS
-                 if MIN_CTA <= (1 << logn) // c <= MAX_CTA)
-
-
 def cluster_size(logn: int) -> int:
-    """CTAs per plane that the wrappers launch: as many as the kernels take
-    while a CTA keeps 64 threads (C = 8 from N = 2^12 up).  Smaller CTAs
-    pack the SMs more finely; C = 8 was the fastest at every plane count of
-    the bench_n14 path, 16 to 288 (PERF.md)."""
+    """CTAs a plane that the kernels launch (``cluster_ctas`` of
+    ``csrc/ntt_passes.cuh``, the same rule): as many as keep 64 threads a
+    CTA, at most 8, so C = 2, 4, 8 at logn 10, 11, ≥ 12.  Smaller CTAs pack
+    the SMs more finely; C = 8 was the fastest at every plane count of the
+    bench_n14 path, 16 to 288 (PERF.md)."""
     return min(CLUSTERS[-1], (1 << logn) // (E * 64))
-
-
-def launch_cluster(name: str, logn: int, cluster: int | None) -> int:
-    """``cluster``, or :func:`cluster_size` when None; raises on a size the
-    kernels do not take at this N."""
-    if cluster is None:
-        return cluster_size(logn)
-    if cluster not in cluster_sizes(logn):
-        raise ValueError(f"{name}: cluster {cluster} not in "
-                         f"{cluster_sizes(logn)}")
-    return cluster
 
 
 # ----------------------------------------------------------------------

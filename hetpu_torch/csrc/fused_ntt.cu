@@ -170,22 +170,15 @@ extern "C" int hetpu_ntt_fwd_fbc(const uint32_t* u, uint32_t* out, int rows,
                                  const uint32_t* ptot_shoup,
                                  const uint32_t* w, const uint32_t* ws,
                                  const uint32_t* q, const uint32_t* c1,
-                                 int cluster, cudaStream_t stream) {
-  using hetpu::passes::launch_planes;
+                                 cudaStream_t stream) {
+  using namespace hetpu::passes;
   const unsigned planes = static_cast<unsigned>(rows) * F;
-  cudaError_t err;
-#define HETPU_FBC_LAUNCH(C)                                                 \
-  launch_planes<C>(fbc_kernel<C>, false, planes, logn, stream, u, out, A, \
-                   F, logn, phat, phat_shoup, recip, ptot, ptot_shoup, w, \
-                   ws, q, c1)
-  switch (cluster) {
-    case 1: err = HETPU_FBC_LAUNCH(1); break;
-    case 2: err = HETPU_FBC_LAUNCH(2); break;
-    case 4: err = HETPU_FBC_LAUNCH(4); break;
-    case 8: err = HETPU_FBC_LAUNCH(8); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef HETPU_FBC_LAUNCH
+  const cudaError_t err = with_cluster(logn, [&](auto cluster) {
+    constexpr int C = decltype(cluster)::value;
+    return launch_planes<C>(fbc_kernel<C>, false, planes, logn, stream, u,
+                            out, A, F, logn, phat, phat_shoup, recip, ptot,
+                            ptot_shoup, w, ws, q, c1);
+  });
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -24,9 +24,9 @@
 // first pass runs; 16-byte plane loads (inverse) and stores (forward); at
 // most 40 registers a thread, so that an SM holds 1536 threads; a plane
 // split over a cluster of C CTAs through distributed shared memory, so
-// that a launch of few planes still fills the card (the wrapper takes the
-// smallest CTAs, core/ntt_passes.py cluster_size).  The epilogue is one
-// Shoup multiply a residue by c1 (* c2) mod q: R (to Montgomery form),
+// that a launch of few planes still fills the card (C is fixed by N:
+// the smallest CTAs that keep 64 threads, cluster_ctas).  The epilogue is
+// one Shoup multiply a residue by c1 (* c2) mod q: R (to Montgomery form),
 // N^-1, N^-1 R^-1 (strip Montgomery form) or N^-1 R^-1 * extra.  Measured
 // times are in PERF.md.
 #include "ntt_passes.cuh"
@@ -64,48 +64,24 @@ __global__ void __launch_bounds__(kThreads, kMinCtas)
                  c1 != nullptr, c, cs);
 }
 
-template <int C>
-cudaError_t launch_ntt(bool inverse, unsigned planes, int logn,
-                       cudaStream_t stream, const uint32_t* x, uint32_t* out,
-                       int L, const uint32_t* w, const uint32_t* ws,
-                       const uint32_t* q, const uint32_t* c1,
-                       const uint32_t* c2) {
-  return inverse
-             ? launch_planes<C>(ntt_kernel<C, true>, true, planes, logn,
-                                stream, x, out, L, logn, w, ws, q, c1, c2)
-             : launch_planes<C>(ntt_kernel<C, false>, false, planes, logn,
-                                stream, x, out, L, logn, w, ws, q, c1, c2);
-}
-
 }  // namespace
 
 extern "C" int hetpu_ntt(const uint32_t* x, uint32_t* out, int rows, int L,
                          int logn, const uint32_t* w, const uint32_t* ws,
                          const uint32_t* q, const uint32_t* c1,
-                         const uint32_t* c2, int inverse, int cluster,
+                         const uint32_t* c2, int inverse,
                          cudaStream_t stream) {
+  using namespace hetpu::passes;
   const unsigned planes = static_cast<unsigned>(rows) * L;
-  cudaError_t err;
-  switch (cluster) {
-    case 1:
-      err = launch_ntt<1>(inverse, planes, logn, stream, x, out, L, w, ws, q,
-                          c1, c2);
-      break;
-    case 2:
-      err = launch_ntt<2>(inverse, planes, logn, stream, x, out, L, w, ws, q,
-                          c1, c2);
-      break;
-    case 4:
-      err = launch_ntt<4>(inverse, planes, logn, stream, x, out, L, w, ws, q,
-                          c1, c2);
-      break;
-    case 8:
-      err = launch_ntt<8>(inverse, planes, logn, stream, x, out, L, w, ws, q,
-                          c1, c2);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const cudaError_t err = with_cluster(logn, [&](auto cluster) {
+    constexpr int C = decltype(cluster)::value;
+    return inverse ? launch_planes<C>(ntt_kernel<C, true>, true, planes, logn,
+                                      stream, x, out, L, logn, w, ws, q, c1,
+                                      c2)
+                   : launch_planes<C>(ntt_kernel<C, false>, false, planes,
+                                      logn, stream, x, out, L, logn, w, ws, q,
+                                      c1, c2);
+  });
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,13 +3,13 @@
 // schedule in Python: the twiddle table layout and a plain twin that
 // indexes exactly as this file does.
 //
-// One N = 2^logn plane is split over a cluster of C CTAs (C in 1, 2, 4, 8
-// with 256 <= N/C <= 4096; launched with a cluster dimension), each holding
-// M = N/C residues in shared memory, one thread per 8 of them.  Every
-// thread holds its E = 8 residues in registers and runs three butterfly
-// stages on them per pass, so the transform is ceil(logn / 3) passes with
-// a barrier between passes (not 14 barriers and 14 shared-memory round
-// trips).  The passes of stride >= N/8 (the first of the forward
+// One N = 2^logn plane is split over a cluster of C CTAs (cluster_ctas:
+// C = 2, 4, 8 at logn 10, 11, >= 12; launched with a cluster dimension),
+// each holding M = N/C residues in shared memory, one thread per 8 of
+// them.  Every thread holds its E = 8 residues in registers and runs
+// three butterfly stages on them per pass, so the transform is
+// ceil(logn / 3) passes with a barrier between passes (not 14 barriers and
+// 14 shared-memory round trips).  The passes of stride >= N/8 (the first of the forward
 // transform, the last of the inverse) are the only ones that cross CTAs:
 // they go through distributed shared memory (cluster.map_shared_rank) and
 // end or start with cluster.sync().  The forward's first pass reads device
@@ -35,6 +35,7 @@
 
 #include <cooperative_groups.h>
 
+#include <type_traits>
 #include <utility>
 
 #include "ntt_common.cuh"
@@ -65,6 +66,23 @@ __host__ __device__ inline size_t block_offset(int b) {
 
 __host__ __device__ inline size_t table_size(int logn) {
   return block_offset(num_passes(logn) - 1) + (size_t{1} << logn);
+}
+
+// CTAs a plane: the most that keep 64 threads a CTA, at most 8.  This
+// was the fastest C at every plane count of the bench_n14 path, 16 to 288
+// (PERF.md); core/ntt_passes.py cluster_size is the same rule.
+inline int cluster_ctas(int logn) {
+  return logn >= 12 ? 8 : logn == 11 ? 4 : 2;
+}
+
+// Call f(std::integral_constant<int, C>) with C = cluster_ctas(logn).
+template <class F>
+inline cudaError_t with_cluster(int logn, F&& f) {
+  switch (cluster_ctas(logn)) {
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    default: return f(std::integral_constant<int, 8>{});
+  }
 }
 
 __device__ __forceinline__ int swz(int i) { return i ^ ((i >> kLogE) & 31); }
@@ -152,23 +170,6 @@ __host__ __device__ inline int staged_base(int b) {
   return b == 0 ? 0 : 1 + ((1 << (3 * b)) - 8) / (7 * C);
 }
 
-// Shared memory of the CTA of cluster rank `rank` (this CTA's when C = 1).
-template <int C>
-__device__ __forceinline__ uint32_t* smem_of(uint32_t* s, int rank) {
-  if constexpr (C == 1)
-    return s;
-  else
-    return cg::this_cluster().map_shared_rank(s, rank);
-}
-
-template <int C>
-__device__ __forceinline__ void cluster_or_block_sync() {
-  if constexpr (C == 1)
-    __syncthreads();
-  else
-    cg::this_cluster().sync();
-}
-
 __device__ __forceinline__ void epilogue(uint32_t (&x)[kE], bool scale,
                                          uint32_t c, uint32_t cs, uint32_t q) {
   if (!scale) return;
@@ -197,7 +198,7 @@ struct Cta {
   uint32_t *s, *sw, *ss, *lw, *ls;
   __device__ __forceinline__ Cta(uint32_t* smem, int logn_)
       : logn(logn_),
-        logm(logn_ - (C == 1 ? 0 : C == 2 ? 1 : C == 4 ? 2 : 3)),
+        logm(logn_ - (C == 2 ? 1 : C == 4 ? 2 : 3)),
         P(num_passes(logn_)),
         cols(1 << (logn_ - kLogE)),
         rank(static_cast<int>(blockIdx.x % C)),
@@ -211,7 +212,8 @@ struct Cta {
 
   // residue idx of the plane, in the shared memory of the CTA that owns it
   __device__ __forceinline__ uint32_t* at(int idx) const {
-    return smem_of<C>(s, idx >> logm) + swz(idx & ((1 << logm) - 1));
+    return cg::this_cluster().map_shared_rank(s, idx >> logm) +
+           swz(idx & ((1 << logm) - 1));
   }
 
   // cp.async the CTA's records of blocks 0 .. P-2 into shared memory
@@ -264,20 +266,18 @@ __device__ __forceinline__ void fwd_plane(uint32_t* smem, int logn,
   copy16(k.ls + k.vt * kE + 4, tws + last + 4);
   // every CTA of the cluster must have started before a remote store:
   // arrive now, wait just before the first
-  if constexpr (C > 1)
-    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 
   // pass 0, stages 0..2 (all cross-CTA stages): device memory → registers
   // → the owners' shared memory; record 0 of block 0 is every thread's
   uint32_t x[kE];
   load(x, k.v, k.cols);
   fwd_regs<kLogE>(x, Tw{tw, tws}, q);
-  if constexpr (C > 1)
-    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 #pragma unroll
   for (int j = 0; j < kE; ++j) *k.at(k.v + j * k.cols) = x[j];
   wait_copies();
-  cluster_or_block_sync<C>();
+  cg::this_cluster().sync();
 
   // passes 1 .. P-2: groups of 2^lb residues, all within this CTA
   for (int p = 1; p < k.P - 1; ++p) {
@@ -342,7 +342,7 @@ __device__ __forceinline__ void inv_plane(uint32_t* smem, int logn,
 #pragma unroll
     for (int j = 0; j < kE; ++j) k.s[swz(li + (j << lh0))] = x[j];
   }
-  cluster_or_block_sync<C>();
+  cg::this_cluster().sync();
 
   // last pass, half N/16 .. N/2 (all cross-CTA stages): the owners' shared
   // memory → registers → device memory
@@ -353,7 +353,7 @@ __device__ __forceinline__ void inv_plane(uint32_t* smem, int logn,
 #pragma unroll
   for (int j = 0; j < kE; ++j) out[k.v + j * k.cols] = x[j];
   // no CTA leaves while another may still read its shared memory
-  if constexpr (C > 1) cg::this_cluster().sync();
+  cg::this_cluster().sync();
 }
 
 // Launch `kernel` over `planes` planes, C CTAs a plane in clusters of C,

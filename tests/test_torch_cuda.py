@@ -14,8 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from hetpu_torch.core import (centered_fbc, cuda_lib, fused_ntt, ip_kernel,
-                               ntt, ntt_passes)
+from hetpu_torch.core import centered_fbc, cuda_lib, fused_ntt, ip_kernel
 from hetpu_torch.core.context import Context
 from hetpu_torch.core.evaluator import Evaluator
 from hetpu_torch.core.modular import from_u32, shoup_companion, to_u32
@@ -49,6 +48,8 @@ def _res(rng, shape, primes, dev):
 @pytest.mark.parametrize("epi", ["fwd", "fwd_mont", "inv", "inv_strip",
                                  "inv_strip_extra"])
 def test_ntt_kernel(dev, logn, epi):
+    """Every N the kernel takes, so every cluster size it launches (2 CTAs
+    a plane at logn 10, 4 at 11, 8 from 12)."""
     n = 1 << logn
     primes = gen_primes(31, 3, 2 * n)
     t = build_tables(n, primes, dev)
@@ -70,23 +71,17 @@ def test_ntt_kernel(dev, logn, epi):
                                   (32, 9)])
 def test_ntt_kernel_planes(dev, lead, inverse):
     """1, 16, 72, 80 and 288 planes of N=2^14 (the path's counts, and the
-    probes'), with every cluster size the kernel takes at that N, and with
-    the one the wrapper picks."""
+    probes'): launches of 8 to 2304 CTAs in clusters of 8."""
     n, L = 1 << 14, lead[-1]
     primes = gen_primes(31, L, 2 * n)
     t = build_tables(n, primes, dev)
     x = _res(np.random.default_rng(sum(lead)), (*lead, n), primes, dev)
     if inverse:
-        want = ntt_inv_plain(x, t, strip_mont=True)
-        assert torch.equal(ntt_inv(x, t, strip_mont=True), want)
-        c1 = t.n_inv_rinv
+        assert torch.equal(ntt_inv(x, t, strip_mont=True),
+                           ntt_inv_plain(x, t, strip_mont=True))
     else:
-        want = ntt_fwd_plain(x, t, to_mont=True)
-        assert torch.equal(ntt_fwd(x, t, to_mont=True), want)
-        c1 = t.r
-    for c in ntt_passes.cluster_sizes(14):
-        assert torch.equal(ntt._ntt_cuda(x, t, inverse=inverse, c1=c1,
-                                         c2=None, cluster=c), want)
+        assert torch.equal(ntt_fwd(x, t, to_mont=True),
+                           ntt_fwd_plain(x, t, to_mont=True))
 
 
 def test_ntt_golden_n14(dev):
@@ -128,21 +123,33 @@ def test_fbc_kernel(dev, ctx):
                                         to_mont=to_mont))
 
 
+@pytest.mark.parametrize("logn", [10, 11, 12])
+def test_fbc_kernel_every_cluster(dev, logn):
+    """K3 at an N of each cluster size it launches: 2, 4, 8 CTAs a
+    plane."""
+    n = 1 << logn
+    mdr = Context(ckks_params(n, levels=3, scale_bits=30, num_special=2,
+                              first_prime_bits=31, special_prime_bits=31,
+                              sec_level=0), dev).moddown_rescale_plan(3)
+    src = mdr.src_tables.primes
+    u = _res(np.random.default_rng(logn), (2, 2, len(src), n), src, dev)
+    assert torch.equal(fused_ntt.ntt_fwd_fbc(u, mdr.fbc, mdr.dst_tables),
+                       fused_ntt.ntt_fwd_fbc_plain(u, mdr.fbc,
+                                                   mdr.dst_tables))
+
+
 @pytest.mark.parametrize("kind", ["tail", "moddown"])
 def test_fbc_kernel_bench_n14(dev, n14, kind):
     """K3 at the bench_n14 B=8 shapes: the tail [8,2,6,N]→[8,2,8,N] and
-    the mod-down [8,2,5,N]→[8,2,9,N], every cluster size."""
+    the mod-down [8,2,5,N]→[8,2,9,N]."""
     plan = (n14.moddown_rescale_plan(8) if kind == "tail"
             else n14.keyswitch_plan(8).moddown)
     src = plan.src_tables.primes
     u = _res(np.random.default_rng(len(kind)), (8, 2, len(src), 16384), src,
              dev)
-    want = fused_ntt.ntt_fwd_fbc_plain(u, plan.fbc, plan.dst_tables)
     assert torch.equal(fused_ntt.ntt_fwd_fbc(u, plan.fbc, plan.dst_tables),
-                       want)
-    for c in ntt_passes.cluster_sizes(14):
-        assert torch.equal(fused_ntt._fbc_cuda(u, plan.fbc, plan.dst_tables,
-                                               to_mont=True, cluster=c), want)
+                       fused_ntt.ntt_fwd_fbc_plain(u, plan.fbc,
+                                                   plan.dst_tables))
 
 
 @pytest.mark.parametrize("lead", [(), (5,)])

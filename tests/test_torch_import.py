@@ -3,12 +3,15 @@
   * importing it (every module, and running the slice and the probes on
     CPU tensors) pulls in neither JAX nor hetpu and builds nothing — checked in a fresh
     interpreter with no nvcc reachable;
+  * the card's scripts (``chip_smoke.py``, ``kernel_ab.py``) import
+    neither JAX nor hetpu;
   * CPU tensors take the plain paths: every kernel launch counter stays 0;
   * a tensor on any other device raises instead of falling back;
   * the entry points run on the card unless given ``device="cpu"``, and
     raise where there is none.
 """
 
+import ast
 import inspect
 import os
 import subprocess
@@ -69,6 +72,20 @@ def test_import_pulls_no_jax_and_builds_nothing(tmp_path):
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("clean")
     assert not any(cuda_lib.BUILD_DIR.glob("*.tmp"))
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py", "kernel_ab.py"])
+def test_card_scripts_import_no_jax(script):
+    """The card's scripts import hetpu_torch, never JAX or hetpu (the GPU
+    host has no JAX): no import statement of theirs names either."""
+    tree = ast.parse((REPO / script).read_text())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names]
+    names += [n.module for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.module]
+    assert any(m.split(".")[0] == "hetpu_torch" for m in names)
+    bad = [m for m in names if m.split(".")[0] in ("jax", "jaxlib", "hetpu")]
+    assert not bad, bad
 
 
 def test_cpu_tensors_never_launch():

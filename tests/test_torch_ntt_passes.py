@@ -4,11 +4,13 @@
 The kernels cannot run here; their plain twins walk the reordered
 twiddle tables pass by pass and cluster rank by rank exactly as the
 kernels index them.  They are held bit for bit against the flat
-transforms of core/ntt.py and against hetpu's flat NTT, at logn 10 and 15,
-for every epilogue and cluster size 1, 2, 4; the K3 twin against
-``ntt_fwd_fbc_plain`` and hetpu's jitted ``_fbc_fwd_mont`` on the near-tie
-α columns.  The shared-memory swizzle is checked to give every warp of
-every pass 32 distinct banks."""
+transforms of core/ntt.py at every logn 10..15 the kernels take (and
+against hetpu's flat NTT at logn 10 and 15), for every epilogue, split
+over the cluster the kernels launch there (2, 4, 8 CTAs a plane); the K3
+twin against ``ntt_fwd_fbc_plain`` and hetpu's jitted ``_fbc_fwd_mont`` on
+the near-tie α columns at N = 2^10 and 2^12 (clusters of 2 and 8).  The
+shared-memory swizzle is checked to give every warp of every pass, for
+every cluster size, 32 distinct banks."""
 
 import numpy as np
 import pytest
@@ -24,14 +26,14 @@ from hetpu_torch.core.context import Context
 from hetpu_torch.core.modular import from_u32, to_u32
 from hetpu_torch.core.nt import gen_primes
 from hetpu_torch.core.ntt import build_tables, ntt_fwd_plain, ntt_inv_plain
-from hetpu_torch.core.params import preset
+from hetpu_torch.core.params import ckks_params, preset
 
 torch.set_num_threads(1)
 
 E = ntt_passes.E
 
 
-@pytest.fixture(scope="module", params=[10, 15])
+@pytest.fixture(scope="module", params=range(10, 16))
 def basis(request):
     logn = request.param
     n = 1 << logn
@@ -49,17 +51,19 @@ def basis(request):
 EPILOGUES = ["fwd", "fwd_mont", "inv", "inv_strip", "inv_strip_extra"]
 
 
-@pytest.mark.parametrize("cluster", [1, 2, 4])
 @pytest.mark.parametrize("epi", EPILOGUES)
-def test_pass_twins_equal_flat_and_hetpu(basis, epi, cluster):
+def test_pass_twins_equal_flat_and_hetpu(basis, epi):
     t, rt, x, extra = basis
+    logn = t.n.bit_length() - 1
+    cluster = ntt_passes.cluster_size(logn)
     xt, xj = from_u32(x), jnp.asarray(x)
     if epi.startswith("fwd"):
         mont = epi == "fwd_mont"
         got = ntt_passes.ntt_fwd_passes_plain(xt, t, cluster=cluster,
                                               to_mont=mont)
         flat = ntt_fwd_plain(xt, t, to_mont=mont)
-        ref = ref_ntt.ntt_fwd_mont(xj, rt) if mont else ref_ntt.ntt_fwd(xj, rt)
+        ref = lambda: (ref_ntt.ntt_fwd_mont if mont else ref_ntt.ntt_fwd)(
+            xj, rt)
     else:
         strip = epi != "inv"
         ex = extra if epi == "inv_strip_extra" else None
@@ -68,9 +72,10 @@ def test_pass_twins_equal_flat_and_hetpu(basis, epi, cluster):
             extra=None if ex is None else from_u32(ex))
         flat = ntt_inv_plain(xt, t, strip_mont=strip,
                              extra=None if ex is None else from_u32(ex))
-        ref = ref_ntt.ntt_inv(xj, rt, strip_mont=strip, extra=ex)
+        ref = lambda: ref_ntt.ntt_inv(xj, rt, strip_mont=strip, extra=ex)
     assert torch.equal(got, flat)
-    np.testing.assert_array_equal(to_u32(got), np.asarray(ref))
+    if logn in (10, 15):
+        np.testing.assert_array_equal(to_u32(got), np.asarray(ref()))
 
 
 @pytest.mark.parametrize("logn", range(10, 16))
@@ -119,14 +124,13 @@ def test_swizzle_keeps_warps_conflict_free(logn):
 
 
 def test_cluster_choice():
-    assert ntt_passes.cluster_sizes(10) == (1, 2, 4)
-    assert ntt_passes.cluster_sizes(12) == (1, 2, 4, 8)
-    assert ntt_passes.cluster_sizes(14) == (4, 8)
-    assert ntt_passes.cluster_sizes(15) == (8,)
+    """The kernels' C (``cluster_ctas`` in csrc/ntt_passes.cuh, the same
+    rule): 2, 4, 8 CTAs a plane at logn 10, 11, ≥ 12, so 64 to 512
+    threads a CTA; the twins refuse CTAs of fewer than MIN_CTA residues."""
     chosen = [ntt_passes.cluster_size(logn) for logn in range(10, 16)]
     assert chosen == [2, 4, 8, 8, 8, 8]
-    assert all(c in ntt_passes.cluster_sizes(logn)
-               for logn, c in zip(range(10, 16), chosen))
+    threads = [(1 << logn) // c // E for logn, c in zip(range(10, 16), chosen)]
+    assert threads == [64, 64, 64, 128, 256, 512]
     t = build_tables(1024, gen_primes(31, 1, 2048), "cpu")
     with pytest.raises(ValueError):
         ntt_passes.ntt_fwd_passes_plain(
@@ -141,12 +145,26 @@ TIES_DNUM = [[508039856, 1099080352, 1621637186, 1631625018],
              [92054122, 59180148, 1858753445, 1119026592]]
 
 
-@pytest.fixture(scope="module")
-def dnum_tail():
-    ctx = Context(preset("test_dnum"), "cpu")
+# N=4096, levels=5, 2 specials: sources of the fused tail at level 5
+# (tests/test_torch_alpha.py checks that they are ties)
+TIES_4096 = [[192642151, 508515651, 179833393],
+             [860224061, 1866548870, 1781166677],
+             [666931458, 1028692039, 858318483],
+             [420010767, 1906473318, 474437857]]
+P4096 = ckks_params(1 << 12, levels=5, scale_bits=30, num_special=2,
+                    first_prime_bits=31, special_prime_bits=31, sec_level=0)
+
+
+@pytest.fixture(scope="module", params=["dnum", "n4096"])
+def tail_ties(request):
+    """(plan, hetpu's plan, near-tie columns [S, 4]) of a fused tail."""
+    params, ties = ((preset("test_dnum"), TIES_DNUM)
+                    if request.param == "dnum" else (P4096, TIES_4096))
+    ctx = Context(params, "cpu")
     lvl = ctx.num_data - 1
-    rplan = RefContext(ctx.params).moddown_rescale_plan(lvl)
-    return ctx.moddown_rescale_plan(lvl), rplan
+    rplan = RefContext(params).moddown_rescale_plan(lvl)
+    return (ctx.moddown_rescale_plan(lvl), rplan,
+            np.array(ties, dtype=np.uint32).T)
 
 
 @pytest.mark.parametrize("cluster", ntt_passes.CLUSTERS)
@@ -165,17 +183,18 @@ def test_pass0_columns_split_over_the_cluster(cluster):
     assert (owners == 1).all()
 
 
-@pytest.mark.parametrize("cluster", [1, 2, 4])
-def test_fbc_pass_twin_on_near_ties(dnum_tail, cluster):
-    """[1, 2, S, N] of the tiled near-tie columns through the K3 twin
-    equals ntt_fwd_fbc_plain and hetpu's jitted _fbc_fwd_mont."""
-    plan, rplan = dnum_tail
+def test_fbc_pass_twin_on_near_ties(tail_ties):
+    """[1, 2, S, N] of the tiled near-tie columns through the K3 twin, at
+    the cluster the kernel launches at that N, equals ntt_fwd_fbc_plain
+    and hetpu's jitted _fbc_fwd_mont."""
+    plan, rplan, ties = tail_ties
     n = plan.dst_tables.n
-    cols = np.tile(np.array(TIES_DNUM, dtype=np.uint32).T, (1, n // 4))
+    cols = np.tile(ties, (1, n // ties.shape[1]))
     y = np.stack([cols, np.roll(cols, 1, axis=1)])[None]
     u = from_u32(y)
-    got = ntt_passes.ntt_fwd_fbc_passes_plain(u, plan.fbc, plan.dst_tables,
-                                              cluster=cluster)
+    got = ntt_passes.ntt_fwd_fbc_passes_plain(
+        u, plan.fbc, plan.dst_tables,
+        cluster=ntt_passes.cluster_size(n.bit_length() - 1))
     assert torch.equal(got, fused_ntt.ntt_fwd_fbc_plain(u, plan.fbc,
                                                         plan.dst_tables))
     want = jax.jit(lambda v: ref_ev._fbc_fwd_mont(v, rplan.fbc,
