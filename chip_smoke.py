@@ -12,7 +12,7 @@ run exits non-zero without a result line):
      when the sources change);
   3. NTT golden — the ``ntt`` kernel forward and inverse on the 14-prime
      N=2^14 basis of tests/golden/golden_n14.npz, bit-exact;
-  4. kernel vs plain — each of the five kernels against its plain PyTorch
+  4. kernel vs plain — each of the six kernels against its plain PyTorch
      version on the same CUDA inputs at the bench_n14 B=8 shapes, exact
      (torch.equal), with per-call times (ms: CUDA events around 20
      back-to-back eager calls, median of 5 windows; a kernel shorter than
@@ -20,16 +20,18 @@ run exits non-zero without a result line):
      replayed from a CUDA graph with L2 flushed before it (graph_ms, median
      of 10: the device's time alone, inputs from device memory) and the
      least time the card could take (bytes read once and written once over
-     3.35 TB/s, or for K1 and K3 the 32-bit multiplies they need over 64
-     lanes an SM at the SM clock nvidia-smi reports as clocks.max.sm,
-     where larger: 3 a Shoup product of the butterflies and epilogue, and
-     for K3's conversion one a term and one reduction a residue); K1 also
-     at the rescale's one-limb INTT [8,2,1,N], the mod-down INTT
-     [8,2,5,N] and the probes' 288 planes [32,9,N], K3 at the tail
-     [8,2,6,N]→[8,2,8,N] and the mod-down [8,2,5,N]→[8,2,9,N];
-     K3 and K5 also on near-tie α columns built here for the bench_n14
-     tail plan (columns where an fma chain and a multiply-then-add chain
-     round α differently);
+     3.35 TB/s, or for K1, K2, K3 and K6 the 32-bit multiplies they need
+     over 64 lanes an SM at the SM clock nvidia-smi reports as
+     clocks.max.sm, where larger: 3 a Shoup product of the butterflies and
+     epilogue, and for the fused prologues one a term and one reduction a
+     residue); K1 also at the rescale's one-limb INTT [8,2,1,N], the
+     mod-down INTT [8,2,5,N] and the probes' 288 planes [32,9,N], K3 at
+     the tail [8,2,6,N]→[8,2,8,N] and the mod-down [8,2,5,N]→[8,2,9,N];
+     K6 ``ntt_fwd_centered`` (K5's path form: the centered conversion
+     fused with the forward NTT) at the centered lift [8,9,N]→[8,19,N],
+     the tail and the mod-down; K3, K5 and K6 also on near-tie α columns
+     built here for the bench_n14 tail plan (columns where an fma chain
+     and a multiply-then-add chain round α differently);
   5. goldens — Session "test_dnum" (seed 0x33) on the card:
      multiply_relin_rescale on golden_pins fused_a/fused_b = fused_out and
      rotate by 1 = fused_rot; golden_n14 rs_n14 through Evaluator.rescale;
@@ -41,14 +43,16 @@ run exits non-zero without a result line):
   8. inference path — Session.create("bench_n14", seed 0x21,
      galois_steps 1..7): infer_step (8 diagonals, weight seed 7) on B=8
      encrypted vectors, decrypt: max error against infer_reference < 5e-3;
-     the B=1 output equals the CPU plain path; K1–K4 launched.  Then the
-     same with centered_fbc=True (Session.from_wire on the same keys):
-     error < 5e-3, B=1 equal to the CPU plain path, K5 launched;
+     the B=1 output equals the CPU plain path; K1–K4 launched, K6 not.
+     Then the same with centered_fbc=True (Session.from_wire on the same
+     keys): error < 5e-3, B=1 equal to the CPU plain path, K6 launched,
+     K2, K3 and the standalone K5 not, and no more K1 launches than the
+     default path (no forward NTT after a conversion);
   9. time — infer_step at B=8 in both FBC modes (ms per call,
      vectors/s), rotate(ct, 1) at B=8, and multiply_relin_rescale with
      centered_fbc=True beside the default;
  10. profile — torch.profiler over 5 infer_step calls in each mode: device
-     time per call by kernel (K1–K5, the plain PyTorch kernels by name),
+     time per call by kernel (K1–K6, the plain PyTorch kernels by name),
      device kernels per call, and the device's busy share of the wall time;
  11. probes — the micro-benchmark kernels P1 copy_planes, P2 muladd_u32,
      P3 dot_i8 and P4 plane_parts against their plain versions at each
@@ -62,19 +66,20 @@ run exits non-zero without a result line):
      graph_ms (plain_graph_ms); then every probe through its entry point
      (hetpu_torch.probes.run: eager and CUDA-graph chains) and
      kernel_micro on phase 6's session; last, the host's time per call of
-     each probe wrapper on one plane and of K1 at the rescale's INTT
-     [8,2,1,N] and K3 at the tail (host clock).
+     each probe wrapper on one plane, of K1 at the rescale's INTT
+     [8,2,1,N] and of K3 and K6 at the tail (host clock).
 
 Launch counts are zeroed just before each path and read just after it
 (a CUDA graph's replay counts the kernels its capture recorded); the
 ``kernels`` line reports each kernel's launches on the inference path
-(K5: on its centered run; P1–P4: on the probes' run), its eager ``ms``
+(K5, K6: on its centered run, where the standalone K5 reads 0; P1–P4: on
+the probes' run), its eager ``ms``
 and cold-L2 ``graph_ms``, the library call's eager ms, and under
 ``cases`` the times of each shape it was compared at.  The last
 line is
 {"ok": true, "device": {"platform": "gpu", ...}}.
 Imports only hetpu_torch, torch and numpy (no JAX, no hetpu).
-``kernel_ab.py`` reuses its K1/K3 cases, host timing and profile
+``kernel_ab.py`` reuses its K1/K2/K3/K6 cases, host timing and profile
 reduction to compare two checkouts.
 """
 
@@ -90,7 +95,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from hetpu_torch.core import cuda_lib, fused_ntt, ip_kernel
+from hetpu_torch.core import centered_fbc, cuda_lib, fused_ntt, ip_kernel
 from hetpu_torch.core.centered_fbc import CenteredFbcPlan
 from hetpu_torch.core.ciphertext import Ciphertext
 from hetpu_torch.core.context import Context
@@ -349,14 +354,16 @@ def fbc_cases(rng, ctx) -> dict:
     return out
 
 
-def ntt_tables(t, inverse: bool) -> list:
-    return ([t.inv_pass_w, t.inv_pass_w_shoup] if inverse
-            else [t.fwd_pass_w, t.fwd_pass_w_shoup])
+def twiddles(t, inverse: bool = False) -> list:
+    """The twiddles a transform needs, N a prime and their Shoup
+    companions, at the size of the flat tables: the kernels read them from
+    pass tables whose unused slots the bound does not count."""
+    return ([t.inv_w, t.inv_w_shoup] if inverse
+            else [t.fwd_w, t.fwd_w_shoup])
 
 
 def fbc_tensors(fbc, t) -> list:
-    return [fbc.phat_mod_r, fbc.phat_shoup, fbc.p_recip, t.fwd_pass_w,
-            t.fwd_pass_w_shoup]
+    return [fbc.phat_mod_r, fbc.phat_shoup, fbc.p_recip, *twiddles(t)]
 
 
 def ntt_imuls(planes: int, n: int) -> float:
@@ -365,14 +372,52 @@ def ntt_imuls(planes: int, n: int) -> float:
     return IMUL_PER_SHOUP * planes * (n // 2 * (n.bit_length() - 1) + n)
 
 
+def loader_imuls(planes: int, terms: int, n: int) -> float:
+    """The transforms of ``planes`` output planes plus the least their
+    fused prologue needs: each of the ``terms`` products a column (a source
+    residue times its weight, α times P) at one wide multiply, accumulated
+    in 64 bits, and one Shoup-sized reduction a residue."""
+    return ntt_imuls(planes, n) + n * (terms + planes * IMUL_PER_SHOUP)
+
+
 def fbc_imuls(u, t) -> float:
-    """The transforms of the output planes plus the least the conversion
-    needs: for every output residue its A + 1 products (the terms
-    u_i·phat_i and α·P) at one wide multiply each, accumulated in 64 bits,
-    and one Shoup-sized reduction."""
+    """The conversion: A + 1 products for every output residue (the
+    terms u_i·phat_i and α·P)."""
     A, n = u.shape[-2:]
     planes = u.numel() // (A * n) * len(t.primes)
-    return ntt_imuls(planes, n) + planes * n * (A + 1 + IMUL_PER_SHOUP)
+    return loader_imuls(planes, planes * (A + 1), n)
+
+
+def lift_imuls(y, ks) -> float:
+    """The digit lift: each output plane's digit holds min(α, Ly − dig·α)
+    source primes, one product each (a short digit's padded terms have
+    weight 0)."""
+    Ly, n = y.shape[-2:]
+    rows = y.numel() // (Ly * n)
+    A = ks.lift_w.shape[1]
+    terms = sum(min(A, Ly - d * A) for d in ks.lift_dig.tolist())
+    return loader_imuls(rows * len(ks.lift_dig), rows * terms, n)
+
+
+def lift_tensors(ks, t) -> list:
+    return [ks.lift_w, ks.lift_ws, ks.lift_dig, *twiddles(t)]
+
+
+def centered_cases(rng, ctx) -> dict:
+    """K6 ``ntt_fwd_centered`` at the bench_n14 B=8 conversions of the
+    centered path, tail [8,2,6,N]→[8,2,8,N] and mod-down
+    [8,2,5,N]→[8,2,9,N]: (u, FBC plan, its centered plan, target tables)
+    by case."""
+    n = ctx.params.poly_degree
+    mdr = ctx.moddown_rescale_plan(LEVEL)
+    md = ctx.keyswitch_plan(LEVEL).moddown
+    out = {}
+    for name, plan in (("ntt_fwd_centered_tail", mdr),
+                       ("ntt_fwd_centered_moddown", md)):
+        src = plan.src_tables.primes
+        out[name] = (residues(rng, (B, 2, len(src), n), src), plan.fbc,
+                     ctx.centered_fbc_plan(plan.fbc), plan.dst_tables)
+    return out
 
 
 def phase_kernels(rng) -> dict:
@@ -388,17 +433,32 @@ def phase_kernels(rng) -> dict:
         out[name] = compare(
             name, lambda: (ntt_inv if inv else ntt_fwd)(x, t, **kw),
             lambda: (ntt_inv_plain if inv else ntt_fwd_plain)(x, t, **kw),
-            [x, *ntt_tables(t, inv)],
+            [x, *twiddles(t, inv)],
             imul=ntt_imuls(x.numel() // t.n, t.n))
 
     x = k1["ntt_inv"][0]
     ft = ks.foreign_cat_tables
     lift = (ks.lift_w, ks.lift_ws, ks.lift_dig, ft)
+    clift = (ks.lift_w, ks.lift_ws, ks.lift_dig, ks.q[: LEVEL + 1], ft)
     out["ntt_fwd_lifted"] = compare(
         "ntt_fwd_lifted",
         lambda: fused_ntt.ntt_fwd_lifted(x, *lift),
         lambda: fused_ntt.ntt_fwd_lifted_plain(x, *lift),
-        [x, ft.fwd_w, ft.fwd_w_shoup])
+        [x, *lift_tensors(ks, ft)], imul=lift_imuls(x, ks))
+
+    # K6: the centered lift of both digits [8,9,N]→[8,19,N] (x holds
+    # residues of the level's primes), the centered tail and mod-down
+    out["ntt_fwd_centered_lift"] = compare(
+        "ntt_fwd_centered lift",
+        lambda: fused_ntt.ntt_fwd_centered_lift(x, *clift),
+        lambda: fused_ntt.ntt_fwd_centered_lift_plain(x, *clift),
+        [x, *lift_tensors(ks, ft), ks.q[: LEVEL + 1]], imul=lift_imuls(x, ks))
+    for name, (u, fbc, plan, dt) in centered_cases(rng, ctx).items():
+        out[name] = compare(
+            name, lambda: fused_ntt.ntt_fwd_centered_fbc(u, plan, dt),
+            lambda: fused_ntt.ntt_fwd_centered_fbc_plain(u, plan, dt),
+            [u, *plan_tensors(plan), *twiddles(dt)],
+            imul=fbc_imuls(u, dt))
 
     for name, (u, fbc, dt) in fbc_cases(rng, ctx).items():
         out[name] = compare(
@@ -419,8 +479,8 @@ def phase_kernels(rng) -> dict:
 
     # K5 at the four bench_n14 B=8 shapes of the centered path
     k5 = {"centered_fbc_tail": (ctx.centered_fbc_plan(mdr.fbc), (B, 2)),
-          "centered_fbc_lift0": (ctx.centered_lift_plan(LEVEL, 0), (B,)),
-          "centered_fbc_lift1": (ctx.centered_lift_plan(LEVEL, 1), (B,)),
+          "centered_fbc_lift0": (centered_fbc.lift_plan(ks, 0), (B,)),
+          "centered_fbc_lift1": (centered_fbc.lift_plan(ks, 1), (B,)),
           "centered_fbc_moddown": (ctx.centered_fbc_plan(ks.moddown.fbc),
                                    (B, 2))}
     for name, (plan, lead) in k5.items():
@@ -444,6 +504,12 @@ def phase_kernels(rng) -> dict:
     out["centered_fbc_ties"] = compare(
         "centered_fbc near-tie columns", lambda: plan.apply(y_tie),
         lambda: plan.apply_plain(y_tie), [y_tie, *plan_tensors(plan)])
+    out["ntt_fwd_centered_ties"] = compare(
+        "ntt_fwd_centered near-tie columns",
+        lambda: fused_ntt.ntt_fwd_centered_fbc(y_tie, plan, dt),
+        lambda: fused_ntt.ntt_fwd_centered_fbc_plain(y_tie, plan, dt),
+        [y_tie, *plan_tensors(plan), *twiddles(dt)],
+        imul=fbc_imuls(y_tie, dt))
     for name, r in out.items():
         log("kernel_vs_plain", kernel=name, **r)
     return out
@@ -583,18 +649,24 @@ def phase_infer(rng):
     log("infer_setup", seconds=round(time.perf_counter() - t0, 3),
         galois_keys=len(sess.gk.elts))
     default = _infer_run(sess, ct, x, diags, act, sess, "default")
+    dl = default["launches"]
     missing = [k for k in ("ntt", "ntt_fwd_lifted", "ntt_fwd_fbc",
-                           "inner_product")
-               if default["launches"][k] <= 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the inference "
-                             f"path: {missing}")
+                           "inner_product") if dl[k] <= 0]
+    if missing or dl["ntt_fwd_centered"] or dl["centered_fbc"]:
+        raise AssertionError(f"default inference path: kernels not "
+                             f"launched {missing}, launches {dl}")
     cent = Session.from_wire(sess.ctx.params, sess.rk, sess.gk,
                              centered_fbc=True)
     centered = _infer_run(cent, ct, x, diags, act, sess, "centered_fbc")
-    if centered["launches"]["centered_fbc"] <= 0:
-        raise AssertionError("centered_fbc not launched on the centered "
-                             "inference path")
+    cl = centered["launches"]
+    # every lift and conversion fused into ntt_fwd_centered: no standalone
+    # K5, no K2/K3, and no forward NTT after a conversion
+    if cl["ntt_fwd_centered"] <= 0 or cl["inner_product"] <= 0 \
+            or cl["ntt"] != dl["ntt"] or any(
+                cl[k] for k in ("centered_fbc", "ntt_fwd_lifted",
+                                "ntt_fwd_fbc")):
+        raise AssertionError(f"centered inference path: launches {cl}, "
+                             f"default {dl}")
     return sess, cent, ct, diags, act, default, centered
 
 
@@ -619,6 +691,7 @@ def phase_infer_time(sess, cent, ct, diags, act, a, b, smi: str) -> None:
 
 # device kernel name fragment → kernel of this package (first match wins)
 KERNEL_OF = (("centered_fbc_kernel", "centered_fbc"),
+             ("centered_kernel", "ntt_fwd_centered"),
              ("lifted_kernel", "ntt_fwd_lifted"),
              ("fbc_kernel", "ntt_fwd_fbc"), ("ip_kernel", "inner_product"),
              ("ntt_kernel", "ntt"))
@@ -781,13 +854,14 @@ def host_us(fn, calls: int = HOST_CALLS) -> float:
 
 def phase_host_cost(rng, smi: str) -> None:
     """Host µs per call of each probe wrapper on one small plane, of K1 at
-    the rescale's INTT [8,2,1,N] and of K3 at the tail."""
+    the rescale's INTT [8,2,1,N] and of K3 and K6 at the tail."""
     x = copy_probe.planes_u32((8, 1, 128, 128), device="cuda")
     xp, wp, tw, tws = kernel_parts.make_inputs(1, 1, device="cuda")
     w, a = dot.int8_mxu_inputs(1, device="cuda")
     ctx = Context(preset("bench_n14"))
     xr, tr, kw = ntt_cases(rng, ctx)["ntt_inv_rescale"]
     u, fbc, dt = fbc_cases(rng, ctx)["ntt_fwd_fbc"]
+    uc, _, plan, dtc = centered_cases(rng, ctx)["ntt_fwd_centered_tail"]
     calls = {"torch x ^ 1": lambda: x ^ 1,
              "torch x.clone()": lambda: x.clone(),
              "copy_planes": lambda: copy_probe.copy_planes(x, 8),
@@ -797,7 +871,9 @@ def phase_host_cost(rng, smi: str) -> None:
                                                             tw, tws),
              "ntt [8,2,1,N]": lambda: ntt_inv(xr, tr, **kw),
              "ntt_fwd_fbc [8,2,6,N]": lambda: fused_ntt.ntt_fwd_fbc(u, fbc,
-                                                                    dt)}
+                                                                    dt),
+             "ntt_fwd_centered [8,2,6,N]":
+                 lambda: fused_ntt.ntt_fwd_centered_fbc(uc, plan, dtc)}
     log("host_cost", host_us_per_call={k: host_us(fn)
                                        for k, fn in calls.items()}, card=smi)
 
@@ -816,6 +892,12 @@ KERNELS = [
      ("ntt_fwd_fbc", "ntt_fwd_fbc_moddown", "ntt_fwd_fbc_ties"), "default"),
     ("inner_product", "hetpu_torch/csrc/ip_kernel.cu",
      "hetpu/core/ip_kernel.py:75", ("inner_product",), "default"),
+    ("ntt_fwd_centered", "hetpu_torch/csrc/fused_ntt.cu",
+     "hetpu/core/mxu_fbc.py:214",
+     ("ntt_fwd_centered_tail", "ntt_fwd_centered_moddown",
+      "ntt_fwd_centered_lift", "ntt_fwd_centered_ties"), "centered"),
+    # the standalone conversion: no path launches it any more (0 on the
+    # centered run); its function is on the path inside ntt_fwd_centered
     ("centered_fbc", "hetpu_torch/csrc/centered_fbc.cu",
      "hetpu/core/mxu_fbc.py:214",
      ("centered_fbc_tail", "centered_fbc_lift0", "centered_fbc_lift1",

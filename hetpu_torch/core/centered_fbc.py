@@ -16,10 +16,14 @@ The centered representative differs from the plain one by a multiple of
 the source product, so a centered lift is NOT bit-equal to the default
 (uncentered) lift: compare it with the reference's centered path only.
 
-A CUDA tensor launches kernel ``centered_fbc`` (``csrc/centered_fbc.cu``);
+:meth:`CenteredFbcPlan.apply` is the counterpart of ``MxuFbcPlan.apply``:
+a CUDA tensor launches kernel ``centered_fbc`` (``csrc/centered_fbc.cu``),
 a CPU tensor takes :meth:`CenteredFbcPlan.apply_plain`.  The evaluator
-uses this module when built with ``centered_fbc=True`` (the reference's
-``HETPU_MXU_FBC=1``).
+built with ``centered_fbc=True`` (the reference's ``HETPU_MXU_FBC=1``)
+launches no standalone conversion: every lift and conversion of its path
+is fused with the forward NTT that follows it
+(``fused_ntt.ntt_fwd_centered_lift`` / ``ntt_fwd_centered_fbc``, kernel
+``ntt_fwd_centered``), on these plans' constants.
 """
 
 from __future__ import annotations
@@ -118,8 +122,8 @@ class CenteredFbcPlan:
 
 
 # ----------------------------------------------------------------------
-# plans of the two call sites (cached by Context.centered_lift_plan and
-# Context.centered_fbc_plan)
+# plans of the two call sites (Context.centered_fbc_plan caches the
+# conversion plans)
 # ----------------------------------------------------------------------
 
 def lift_plan(ks_plan, di: int) -> CenteredFbcPlan:

@@ -151,12 +151,6 @@ class Context:
             src_prime=self.params.moduli[level],
             dst_primes=self.params.moduli[: level]))
 
-    def centered_lift_plan(self, level: int,
-                           di: int) -> centered_fbc.CenteredFbcPlan:
-        """Centered digit lift of digit ``di`` at ``level``."""
-        return self._cached(("clift", level, di), lambda: centered_fbc
-                            .lift_plan(self.keyswitch_plan(level), di))
-
     def centered_fbc_plan(self, fbc: rns.FbcPlan
                           ) -> centered_fbc.CenteredFbcPlan:
         """Centered form of one of this context's FBC plans (the memo

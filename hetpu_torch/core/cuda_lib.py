@@ -40,8 +40,9 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 # kernel name → launches made by its wrapper (one per kernel launch)
 launches = {"ntt": 0, "ntt_fwd_lifted": 0, "ntt_fwd_fbc": 0,
-            "inner_product": 0, "centered_fbc": 0, "copy_planes": 0,
-            "muladd_u32": 0, "dot_i8": 0, "plane_parts": 0}
+            "ntt_fwd_centered": 0, "inner_product": 0, "centered_fbc": 0,
+            "copy_planes": 0, "muladd_u32": 0, "dot_i8": 0,
+            "plane_parts": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -58,6 +59,10 @@ _SIGNATURES = {
     # ptot_shoup, w, ws, q, c1, stream
     "hetpu_ntt_fwd_fbc": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                           _P, _P, _P, _P),
+    # y, out, rows, Ly, F, A, logn, cw, cws, wf, wi, dig, q_src, recip,
+    # pm, pms, w, ws, q, c1, stream
+    "hetpu_ntt_fwd_centered": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _I,
+                               _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     # ext, k, ks, q, out, B, J, R, n, stream
     "hetpu_inner_product": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # y, out, rows, S, F, n, q_src, recip, c, cs, pm, pms, ex, exs, q_dst,

@@ -11,16 +11,18 @@ bit-exact with its reference twin.  ``rescale_group=2`` presets raise
 ``NotImplementedError`` (their group rescale is not ported yet).
 
 On a CUDA tensor the transforms run in hand-written kernels (``ntt``,
-``ntt_fwd_lifted``, ``ntt_fwd_fbc``, ``inner_product``, and
-``centered_fbc`` with ``centered_fbc=True``); the elementwise steps
-between them (Karatsuba multiply, Galois gathers, Shoup multiplies,
-concatenations, mod add/sub) stay plain PyTorch.
+``ntt_fwd_lifted``, ``ntt_fwd_fbc``, ``inner_product``, and with
+``centered_fbc=True`` ``ntt_fwd_centered`` in place of the two fused
+ones); the elementwise steps between them (Karatsuba multiply, Galois
+gathers, Shoup multiplies, concatenations, mod add/sub) stay plain
+PyTorch.
 
 ``centered_fbc=True`` is the port's spelling of the reference's
 ``HETPU_MXU_FBC=1``: the key-switch digit lift and every α-corrected base
-conversion go through :mod:`.centered_fbc`.  Its lift differs from the
-default lift by a multiple of the digit product (standard mod-up noise),
-so its outputs equal the reference's centered path, not the default one.
+conversion take centered source values (:mod:`.centered_fbc`), fused with
+the forward NTT that follows them.  Its lift differs from the default
+lift by a multiple of the digit product (standard mod-up noise), so its
+outputs equal the reference's centered path, not the default one.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ from .context import Context, KeySwitchPlan, RescalePlan
 from .keys import GaloisKeys, KSwitchKey, RelinKeys
 from .modular import (barrett_reduce_u32, mod_add, mod_neg, mod_sub,
                       mont_mul, shoup_mul)
-from .ntt import ntt_fwd, ntt_fwd_mont, ntt_inv
+from .ntt import ntt_fwd_mont, ntt_inv
 
 
 class Evaluator:
@@ -155,25 +157,22 @@ class Evaluator:
         the key basis: standard-form NTT digits [..., J, R, N].
 
         The INTT folds in the digit-local D̂⁻¹ and the Montgomery strip.
-        Default: the lift to each digit's FOREIGN primes runs in the
-        forward-NTT kernel's prologue (``ntt_fwd_lifted``).  Centered: each
-        digit is lifted by :mod:`.centered_fbc`, then one forward NTT covers
-        every lifted plane.  On a digit's own primes the lifted value is the
-        input residue itself (one Shoup multiply by R⁻¹, no NTT)."""
+        The lift of every digit to its FOREIGN primes runs in the
+        forward-NTT kernel's prologue, one launch: ``ntt_fwd_lifted``, or
+        with ``centered_fbc`` the centered lift (``ntt_fwd_centered``).  On a
+        digit's own primes the lifted value is the input residue itself
+        (one Shoup multiply by R⁻¹, no NTT)."""
         plan: KeySwitchPlan = self.ctx.keyswitch_plan(level)
         tabs = self.ctx.tables(level)
         d = d.contiguous()
         y = ntt_inv(d, tabs, strip_mont=True, extra=plan.dig_inv)
+        lift = (plan.lift_w, plan.lift_ws, plan.lift_dig)
         if self.centered_fbc:
-            lifted = [self.ctx.centered_lift_plan(level, di).apply(
-                y[..., lo:hi, :].contiguous())
-                for di, (lo, hi) in enumerate(plan.digit_bounds)]
-            lifted_cat = ntt_fwd(torch.cat(lifted, dim=-2),
-                                 plan.foreign_cat_tables)
+            lifted_cat = fused_ntt.ntt_fwd_centered_lift(
+                y, *lift, plan.q[: level + 1], plan.foreign_cat_tables)
         else:
-            lifted_cat = fused_ntt.ntt_fwd_lifted(
-                y, plan.lift_w, plan.lift_ws, plan.lift_dig,
-                plan.foreign_cat_tables)
+            lifted_cat = fused_ntt.ntt_fwd_lifted(y, *lift,
+                                                  plan.foreign_cat_tables)
         exts = []
         off = 0
         for di, (lo, hi) in enumerate(plan.digit_bounds):
@@ -381,12 +380,12 @@ def _mod_down(acc: torch.Tensor, md, k: int,
 
 
 def _fbc_fwd_mont(u, fbc, dst_tables, centered: CenteredFbcPlan | None = None):
-    """Centered FBC + Montgomery forward NTT: one ``ntt_fwd_fbc`` kernel
-    (the converted planes never go to device memory), or, given the
-    centered plan of ``fbc``, the ``centered_fbc`` kernel followed by the
-    forward NTT ×R."""
+    """Centered FBC + Montgomery forward NTT in one kernel (the converted
+    planes never go to device memory): ``ntt_fwd_fbc``, or, given the
+    centered plan of ``fbc``, ``ntt_fwd_centered``."""
     if centered is not None:
-        return ntt_fwd_mont(centered.apply(u), dst_tables)
+        return fused_ntt.ntt_fwd_centered_fbc(u, centered, dst_tables,
+                                              to_mont=True)
     return fused_ntt.ntt_fwd_fbc(u, fbc, dst_tables, to_mont=True)
 
 

@@ -41,9 +41,11 @@ bits 3..7 into bits 0..4, which keeps every pass's accesses free of bank
 conflicts.
 
 The plain twins (:func:`ntt_fwd_passes_plain`, :func:`ntt_inv_passes_plain`,
-:func:`ntt_fwd_fbc_passes_plain`) walk the reordered table pass by pass
-and cluster rank by rank exactly as the kernels index it; the tests hold
-them against the flat transforms.
+:func:`ntt_fwd_fbc_passes_plain`, :func:`ntt_fwd_lifted_passes_plain`,
+:func:`ntt_fwd_centered_passes_plain`) walk the reordered table pass by
+pass and cluster rank by rank exactly as the kernels index it, the fused
+kernels' prologue (``csrc/fused_ntt.cu`` ``LiftLoad``) building pass 0's
+columns; the tests hold them against the flat transforms.
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ import numpy as np
 import torch
 
 from .modular import add_i64, sub_i64, u32
+from .rns import fma_f32
 
 if TYPE_CHECKING:
     from .ntt import NttTables
@@ -286,20 +289,76 @@ def ntt_inv_passes_plain(a: torch.Tensor, t: "NttTables", *, cluster: int,
 def ntt_fwd_fbc_passes_plain(u: torch.Tensor, fbc: "FbcPlan", t: "NttTables",
                              *, cluster: int,
                              to_mont: bool = True) -> torch.Tensor:
-    """The ``ntt_fwd_fbc`` kernel's schedule: each CTA converts (``rns.
-    fbc_apply``) only the columns its threads hold in pass 0; equal to
-    ``fused_ntt.ntt_fwd_fbc_plain``."""
-    from .rns import fbc_apply
-    A, n = u.shape[-2:]
-    F = len(t.primes)
-    ur = u.reshape(-1, A, n)
+    """The ``ntt_fwd_fbc`` kernel's schedule: each CTA converts only the
+    columns its threads hold in pass 0 (the default form with α of the
+    fused kernels' loader); equal to ``fused_ntt.ntt_fwd_fbc_plain``."""
+    return _lift_passes(u, fbc.phat_mod_r.T, t, cluster=cluster,
+                        to_mont=to_mont, recip=fbc.p_recip,
+                        p_mod=fbc.ptot_mod_r)
+
+
+def _lift_passes(y: torch.Tensor, w: torch.Tensor, t: "NttTables", *,
+                 cluster: int, to_mont: bool, dig=None, q_src=None,
+                 recip=None, p_mod=None) -> torch.Tensor:
+    """Forward passes whose pass 0 builds its columns as ``LiftLoad``:
+    output plane f of a row is Σ_{i<A} w[f, i]·v(y[s]) − α·p_mod[f] mod
+    q_f, source plane s = min(dig_f·A + i, Ly − 1) (dig_f = 0 without
+    ``dig``); v(y) = y, or with ``q_src`` (the prime of each source plane)
+    the centered y − q_s when y > q_s/2; with ``recip`` (f32 1/q of each
+    plane) α = round(fma chain of f32(v)·recip over i ascending), signed.
+    y: int32 [..., Ly, N]; w: [F, A]."""
+    Ly, n = y.shape[-2:]
+    F, A = w.shape
+    yr = y.reshape(-1, Ly, n)
+    src = (torch.zeros(F, dtype=torch.int64) if dig is None
+           else dig.to(torch.int64) * A)
+    s = (src[:, None] + torch.arange(A)).clamp(max=Ly - 1)      # [F, A]
+    wt = u32(w)[..., None]
+    q = u32(t.q).reshape(F, 1)
 
     def load(idx):
-        y = fbc_apply(ur[:, :, idx.reshape(-1)], fbc, correct=True,
-                      premul=False)
-        return y.to(torch.int64).reshape(ur.shape[0], F, *idx.shape)
+        cols = idx.reshape(-1)
+        v = yr[:, :, cols].to(torch.int64)[:, s]                 # [R,F,A,M]
+        if q_src is not None:
+            qs = u32(q_src).reshape(-1)[s][..., None]
+            v = torch.where(v > qs // 2, v - qs, v)
+        x = (v * wt % q[..., None]).sum(-2) % q                  # [R,F,M]
+        if recip is not None:
+            rc = recip.reshape(-1)[s]                            # [F, A]
+            al = torch.zeros(x.shape, dtype=torch.float32)
+            for i in range(A):
+                al = fma_f32(v[:, :, i].to(torch.int32).to(torch.float32),
+                             rc[:, i: i + 1], al)
+            alpha = torch.round(al).to(torch.int64)
+            x = (x - alpha * u32(p_mod).reshape(F, 1)) % q
+        return x.reshape(yr.shape[0], F, *idx.shape)
 
     out = ntt_fwd_passes_plain(
-        torch.empty((ur.shape[0], F, n), dtype=torch.int32), t,
+        torch.empty((yr.shape[0], F, n), dtype=torch.int32), t,
         cluster=cluster, to_mont=to_mont, load=load)
-    return out.reshape(*u.shape[:-2], F, n)
+    return out.reshape(*y.shape[:-2], F, n)
+
+
+def ntt_fwd_lifted_passes_plain(y: torch.Tensor, lift_w: torch.Tensor,
+                                lift_dig: torch.Tensor, t: "NttTables", *,
+                                cluster: int,
+                                to_mont: bool = False) -> torch.Tensor:
+    """The ``ntt_fwd_lifted`` kernel's schedule: pass 0 lifts the columns
+    each thread holds (source planes dig_f·α + i, clamped); equal to
+    ``fused_ntt.ntt_fwd_lifted_plain``."""
+    return _lift_passes(y, lift_w, t, cluster=cluster, to_mont=to_mont,
+                        dig=lift_dig)
+
+
+def ntt_fwd_centered_passes_plain(y: torch.Tensor, w: torch.Tensor,
+                                  t: "NttTables", *, cluster: int, q_src,
+                                  dig=None, recip=None, p_mod=None,
+                                  to_mont: bool = False) -> torch.Tensor:
+    """The ``ntt_fwd_centered`` kernel's schedule, on its arguments: the
+    centered lift (w = ``lift_w``, ``dig`` = ``lift_dig``, q_src the
+    level's primes) or the centered conversion (w = C transposed to
+    [F, S], q_src, recip and p_mod of a :class:`~.centered_fbc.
+    CenteredFbcPlan`).  Equal to ``fused_ntt.ntt_fwd_centered_lift_plain``
+    / ``ntt_fwd_centered_fbc_plain``."""
+    return _lift_passes(y, w, t, cluster=cluster, to_mont=to_mont, dig=dig,
+                        q_src=q_src, recip=recip, p_mod=p_mod)

@@ -1,5 +1,6 @@
-// The register-radix NTT core of the `ntt` and `ntt_fwd_fbc` kernels
-// (ntt.cu, fused_ntt.cu).  hetpu_torch/core/ntt_passes.py holds the same
+// The register-radix NTT core of the `ntt` kernel (ntt.cu) and of the
+// fused kernels `ntt_fwd_lifted`, `ntt_fwd_fbc` and `ntt_fwd_centered`
+// (fused_ntt.cu).  hetpu_torch/core/ntt_passes.py holds the same
 // schedule in Python: the twiddle table layout and a plain twin that
 // indexes exactly as this file does.
 //
@@ -13,7 +14,8 @@
 // transform, the last of the inverse) are the only ones that cross CTAs:
 // they go through distributed shared memory (cluster.map_shared_rank) and
 // end or start with cluster.sync().  The forward's first pass reads device
-// memory directly (a column loader: the plane, or K3's base conversion),
+// memory directly (a column loader: the plane, or fused_ntt.cu's digit
+// lift or base conversion),
 // its last pass writes 8 contiguous residues a thread with 16-byte stores;
 // the inverse mirrors this.
 //

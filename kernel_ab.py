@@ -1,30 +1,38 @@
 #!/usr/bin/env python3
-"""Time the ``ntt`` (K1) and ``ntt_fwd_fbc`` (K3) kernels of hetpu_torch
-trees side by side on one NVIDIA card.
+"""Time the fused and NTT kernels of hetpu_torch trees side by side on
+one NVIDIA card.
 
     python kernel_ab.py ROOT [ROOT ...]
 
 Each ROOT is a checkout holding ``hetpu_torch/``; each is measured in a
 process of its own (the trees share the package name), in the order
-given: to compare two trees, give them as A B B A.  Per root, one JSON
-line:
+given: to compare two trees, give them as A B B A (ten pairs: A B B A
+repeated five times).  Per root, one JSON line:
 
-  * ``kernels``: K1 and K3 at the bench_n14 B=8 shapes of the main path
-    (``chip_smoke.ntt_cases`` / ``fbc_cases``), each exact against its
-    plain version, timed cold (one call replayed from a CUDA graph after an
-    L2 flush, ``probes.cold_ms``) and eagerly (``chip_smoke.median_ms``);
-  * ``host_us``: host µs per call of K1 at the rescale's INTT [8,2,1,N]
-    and K3 at the tail (``chip_smoke.host_us``: calls enqueued back to
-    back, host clock);
-  * ``infer_step``: ``chip_smoke.profile_calls`` over 5 calls on B=8,
-    default FBC: device µs per call of K1 and K3, all device time, device
-    kernels per call; and ms per call over 20 calls (CUDA events);
-  * ``multiply_relin_rescale_ms``: ms per call over 100 calls at B=8.
+  * ``kernels``: at the bench_n14 B=8 shapes of the main path, each exact
+    against its plain version, timed cold (one call replayed from a CUDA
+    graph after an L2 flush, ``probes.cold_ms``) and eagerly
+    (``chip_smoke.median_ms``): K1 ``ntt`` (``chip_smoke.ntt_cases``), K2
+    ``ntt_fwd_lifted`` [8,9,N]→[8,19,N], K3 ``ntt_fwd_fbc``
+    (``fbc_cases``), the centered conversions of the tail and the mod-down
+    through ``evaluator._fbc_fwd_mont`` with their centered plans
+    (``centered_cases``), and the centered decomposition
+    ``Evaluator(ctx, centered_fbc=True)._decompose`` at [8,9,N] (row 0
+    checked against the CPU evaluator);
+  * ``host_us``: host µs per call of K1 at the rescale's INTT [8,2,1,N],
+    K3 at the tail and the centered tail conversion
+    (``chip_smoke.host_us``: calls enqueued back to back, host clock);
+  * ``infer_step``, in both FBC modes (``default``, ``centered``):
+    ``chip_smoke.profile_calls`` over 5 calls on B=8: device µs per call
+    of each package kernel, all device time, device kernels per call; and
+    ms per call over 20 calls (CUDA events);
+  * ``multiply_relin_rescale_ms``: ms per call over 100 calls at B=8, in
+    both modes.
 
 The cases, timers and profile reduction come from the ``chip_smoke.py``
-beside this file; only the trees' public entry points are called, so any
-two revisions of the port compare.  Needs a CUDA card; builds each tree's
-kernels into its own ``build/``.
+beside this file; only entry points that every revision of the port has
+are called, so any two revisions compare.  Needs a CUDA card; builds each
+tree's kernels into its own ``build/``.
 """
 
 from __future__ import annotations
@@ -55,8 +63,9 @@ def _child(root: str) -> dict:
     import torch
 
     from hetpu_torch import probes
-    from hetpu_torch.core import fused_ntt
+    from hetpu_torch.core import evaluator, fused_ntt
     from hetpu_torch.core.context import Context
+    from hetpu_torch.core.evaluator import Evaluator
     from hetpu_torch.core.ntt import (ntt_fwd, ntt_fwd_plain, ntt_inv,
                                       ntt_inv_plain)
     from hetpu_torch.core.params import preset
@@ -66,9 +75,10 @@ def _child(root: str) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: needs a CUDA card")
     smoke = _smoke()
-    B = smoke.B
+    B, LEVEL = smoke.B, smoke.LEVEL
     rng = np.random.default_rng(4)
     ctx = Context(preset("bench_n14"))
+    ks = ctx.keyswitch_plan(LEVEL)
 
     calls = {}
     for name, (x, t, kw) in smoke.ntt_cases(rng, ctx).items():
@@ -76,38 +86,67 @@ def _child(root: str) -> dict:
                      else (ntt_fwd, ntt_fwd_plain))
         calls[name] = (x, lambda fn=fn, x=x, t=t, kw=kw: fn(x, t, **kw),
                        lambda fn=plain, x=x, t=t, kw=kw: fn(x, t, **kw))
+    x = calls["ntt_inv"][0]
+    lift = (ks.lift_w, ks.lift_ws, ks.lift_dig, ks.foreign_cat_tables)
+    calls["ntt_fwd_lifted"] = (x, lambda: fused_ntt.ntt_fwd_lifted(x, *lift),
+                               lambda: fused_ntt.ntt_fwd_lifted_plain(x, *lift))
     for name, (u, fbc, dt) in smoke.fbc_cases(rng, ctx).items():
         calls[name] = (u, lambda u=u, fbc=fbc, dt=dt:
                        fused_ntt.ntt_fwd_fbc(u, fbc, dt),
                        lambda u=u, fbc=fbc, dt=dt:
                        fused_ntt.ntt_fwd_fbc_plain(u, fbc, dt))
+    # the centered conversions through the evaluator's own step
+    for name, (u, fbc, plan, dt) in smoke.centered_cases(rng, ctx).items():
+        calls[name] = (u, lambda u=u, fbc=fbc, plan=plan, dt=dt:
+                       evaluator._fbc_fwd_mont(u, fbc, dt, plan),
+                       lambda u=u, plan=plan, dt=dt:
+                       ntt_fwd_plain(plan.apply_plain(u), dt, to_mont=True))
     kernels = {}
     for name, (a, call, plain) in calls.items():
         if not torch.equal(call(), plain()):
             raise AssertionError(f"{root}: {name} differs from plain")
         kernels[name] = {"cold_ms": probes.cold_ms(call),
                          "ms": smoke.median_ms(call), "shape": list(a.shape)}
+    # the centered decomposition (INTT, the lift of both digits, the
+    # direct rows), against the CPU evaluator on row 0
+    ev_c = Evaluator(ctx, centered_fbc=True)
+    d = smoke.residues(rng, (B, LEVEL + 1, ctx.params.poly_degree),
+                       ctx.params.moduli[: LEVEL + 1])
+    dec = lambda: ev_c._decompose(d, LEVEL)
+    ev_cpu = Evaluator(Context(preset("bench_n14"), "cpu"), centered_fbc=True)
+    if not torch.equal(dec()[:1].cpu(), ev_cpu._decompose(d[:1].cpu(), LEVEL)):
+        raise AssertionError(f"{root}: centered _decompose differs from CPU")
+    kernels["centered_decompose"] = {"cold_ms": probes.cold_ms(dec),
+                                     "ms": smoke.median_ms(dec),
+                                     "shape": list(d.shape)}
     host = {name: smoke.host_us(calls[name][1])
-            for name in ("ntt_inv_rescale", "ntt_fwd_fbc")}
+            for name in ("ntt_inv_rescale", "ntt_fwd_fbc",
+                         "ntt_fwd_centered_tail")}
 
     sess = Session.create("bench_n14", seed=b"\x21" * 32,
                           galois_steps=list(range(1, N_DIAGS)))
+    cent = Session.from_wire(sess.ctx.params, sess.rk, sess.gk,
+                             centered_fbc=True)
     xs = rng.uniform(-1, 1, (B, sess.slots))
     ct = smoke.stack([sess.encrypt(v) for v in xs])
     diags, act = pipeline._infer_weights(sess.slots, N_DIAGS, WSEED)
-    step = lambda: pipeline.infer_step(sess, ct, diags, act)
-    prof = smoke.profile_calls(step)
     b = ct.with_(data=ct.data.flip(0).contiguous())
-    mrr = lambda: sess.ev.multiply_relin_rescale(ct, b, sess.rk)
-    mrr()
-    torch.cuda.synchronize()
-    return {"root": root, "kernels": kernels, "host_us": host, "infer_step": {
-        "k1_us": prof["ours"].get("ntt", 0.0),
-        "k3_us": prof["ours"].get("ntt_fwd_fbc", 0.0),
-        "device_us": prof["device_us"], "device_kernels": prof["kernels"],
-        "ms": probes.window_ms(lambda: [step() for _ in range(20)]) / 20},
-        "multiply_relin_rescale_ms":
-            probes.window_ms(lambda: [mrr() for _ in range(100)]) / 100}
+    infer, mrr = {}, {}
+    for mode, s in (("default", sess), ("centered", cent)):
+        step = lambda s=s: pipeline.infer_step(s, ct, diags, act)
+        prof = smoke.profile_calls(step)
+        infer[mode] = {f"{k}_us": prof["ours"].get(k, 0.0) for k in (
+            "ntt", "ntt_fwd_lifted", "ntt_fwd_fbc", "ntt_fwd_centered",
+            "centered_fbc", "inner_product")}
+        infer[mode].update(
+            device_us=prof["device_us"], device_kernels=prof["kernels"],
+            ms=probes.window_ms(lambda: [step() for _ in range(20)]) / 20)
+        op = lambda s=s: s.ev.multiply_relin_rescale(ct, b, sess.rk)
+        op()
+        torch.cuda.synchronize()
+        mrr[mode] = probes.window_ms(lambda: [op() for _ in range(100)]) / 100
+    return {"root": root, "kernels": kernels, "host_us": host,
+            "infer_step": infer, "multiply_relin_rescale_ms": mrr}
 
 
 def main(argv: list[str]) -> int:

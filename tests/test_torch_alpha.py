@@ -2,10 +2,11 @@
 
 hetpu computes α = round(Σ_i f32(y_i)·f32(1/p_i)) as
 ``jnp.sum(y.astype(f32) * recip, axis=-2)`` inside ``jax.jit``; XLA
-compiles that into one chain of fused multiply-adds.  The columns below
-were found once (seeded search, each S-tuple a column of residues) where
-that chain and a multiply-then-add chain round α differently; the first
-test asserts that they still do, which keeps the others meaningful.  On
+compiles that into one chain of fused multiply-adds.  The columns of
+``tests/torch_ties.py`` were found once (seeded search, each S-tuple a
+column of residues) where that chain and a multiply-then-add chain round
+α differently; the first test asserts that they still do, which keeps
+the others (and the card tests that share the tables) meaningful.  On
 them the port's plain α must be the fma chain:
 
   * ``rns.fbc_apply``, ``fused_ntt.ntt_fwd_fbc_plain`` and
@@ -31,25 +32,10 @@ from hetpu_torch.core import centered_fbc, evaluator, fused_ntt, rns
 from hetpu_torch.core.context import Context
 from hetpu_torch.core.modular import from_u32, to_u32
 from hetpu_torch.core.params import preset
+from torch_ties import (TIES_4096, TIES_4096_CENTERED, TIES_DNUM,
+                        TIES_DNUM_CENTERED, TIES_N14_TAIL_CENTERED)
 
 torch.set_num_threads(1)
-
-# test_dnum, fused tail at the top level: sources q_7 + the 3 specials
-TIES_DNUM = [[508039856, 1099080352, 1621637186, 1631625018],
-             [37419502, 309566830, 1767178876, 1069488476],
-             [454505166, 586600971, 1777398114, 2095414402],
-             [92054122, 59180148, 1858753445, 1119026592]]
-# the same sources, ties of the CENTERED values (y_i > q_i/2 → y_i − q_i)
-TIES_DNUM_CENTERED = [[362438493, 1635477856, 1308414874, 1699663812],
-                      [635511566, 1792818991, 214954608, 2089613811],
-                      [832047190, 1506075342, 338069672, 1860156527],
-                      [267531152, 2002721513, 383764152, 299512774]]
-# N=4096 (four-step tables in hetpu), levels=5, 2 specials: sources of
-# the fused tail at level 5
-TIES_4096 = [[192642151, 508515651, 179833393],
-             [860224061, 1866548870, 1781166677],
-             [666931458, 1028692039, 858318483],
-             [420010767, 1906473318, 474437857]]
 
 P4096 = ckks_params(1 << 12, levels=5, scale_bits=30, num_special=2,
                     first_prime_bits=31, special_prime_bits=31, sec_level=0)
@@ -95,13 +81,21 @@ def dnum():
             ctx.params.moduli[lvl:lvl + 1] + ctx.params.special_moduli)
 
 
-@pytest.mark.parametrize("case", ["dnum", "dnum_centered", "n4096"])
+@pytest.mark.parametrize("case", ["dnum", "dnum_centered", "n4096",
+                                  "n4096_centered", "n14_centered"])
 def test_columns_are_ties(dnum, case):
     """The fma chain (hetpu's jitted α) and a multiply-then-add chain
     round α differently on every listed column."""
-    if case == "n4096":
+    if case == "n14_centered":
+        p = preset("bench_n14")
+        primes = p.moduli[8:9] + p.special_moduli
+        v = _center(_cols(TIES_N14_TAIL_CENTERED).astype(np.int64), primes)
+    elif case.startswith("n4096"):
         primes = P4096.moduli[5:6] + P4096.special_moduli
-        v = _cols(TIES_4096).astype(np.int64)
+        v = _cols(TIES_4096 if case == "n4096"
+                  else TIES_4096_CENTERED).astype(np.int64)
+        if case == "n4096_centered":
+            v = _center(v, primes)
     else:
         primes = dnum[2]
         ties = TIES_DNUM if case == "dnum" else TIES_DNUM_CENTERED

@@ -39,7 +39,7 @@ def _plans(kind, ctx, rctx, lvl):
     """[(port plan, hetpu plan)] of one call site."""
     if kind == "lift":
         ks, rks = ctx.keyswitch_plan(lvl), rctx.keyswitch_plan(lvl)
-        return [(ctx.centered_lift_plan(lvl, di), mxu_fbc.lift_plan(rks, di))
+        return [(centered_fbc.lift_plan(ks, di), mxu_fbc.lift_plan(rks, di))
                 for di in range(ks.num_digits)]
     if kind == "moddown":
         fbc, rfbc = (ctx.keyswitch_plan(lvl).moddown.fbc,
@@ -95,7 +95,7 @@ def test_lift_is_exact_centered_sum(dnum, rng):
         src = [int(p) for p in q[lo:hi]]
         y = np.stack([rng.integers(0, p, 128, dtype=np.uint64)
                       .astype(np.uint32) for p in src])
-        got = to_u32(dnum.centered_lift_plan(lvl, di).apply(from_u32(y)))
+        got = to_u32(centered_fbc.lift_plan(ks, di).apply(from_u32(y)))
         cent = [np.where(y[i] > src[i] // 2, y[i].astype(np.int64) - src[i],
                          y[i].astype(np.int64)) for i in range(len(src))]
         for fj, f in enumerate(ks.foreign_idx[di]):

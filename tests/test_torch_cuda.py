@@ -26,6 +26,8 @@ from hetpu_torch.offload import pipeline
 from hetpu_torch.probes import copy as copy_probe
 from hetpu_torch.probes import dot, kernel_parts, overhead2
 from hetpu_torch.session import Session
+from torch_ties import (TIES_DNUM, TIES_DNUM_CENTERED,
+                        TIES_N14_TAIL_CENTERED)
 
 pytestmark = pytest.mark.cuda
 
@@ -112,6 +114,70 @@ def test_lifted_kernel(dev, ctx, level):
                                                           to_mont=to_mont))
 
 
+_CTX = {}
+
+
+def _small_ctx(dev, logn):
+    """levels=5, 2 specials (α = 2, 3 digits at the top, a short last
+    digit one level down) at N = 2^logn, one per logn."""
+    if logn not in _CTX:
+        _CTX[logn] = Context(ckks_params(1 << logn, levels=5, scale_bits=30,
+                                         num_special=2, first_prime_bits=31,
+                                         special_prime_bits=31, sec_level=0),
+                             dev)
+    return _CTX[logn]
+
+
+@pytest.mark.parametrize("rows", [1, 8, 16])
+@pytest.mark.parametrize("level", [5, 4])
+@pytest.mark.parametrize("logn", range(10, 16))
+def test_lifted_kernel_every_cluster(dev, logn, level, rows):
+    """K2 at every N it takes, so every cluster size (2, 4, 8 CTAs a
+    plane), with 1, 8 and 16 rows, full and short last digits, both
+    epilogues."""
+    ctx = _small_ctx(dev, logn)
+    ks = ctx.keyswitch_plan(level)
+    y = _res(np.random.default_rng(logn * rows + level), (rows, level + 1,
+                                                          1 << logn),
+             ctx.params.moduli[: level + 1], dev)
+    args = (y, ks.lift_w, ks.lift_ws, ks.lift_dig, ks.foreign_cat_tables)
+    for to_mont in (False, True):
+        before = cuda_lib.launches["ntt_fwd_lifted"]
+        got = fused_ntt.ntt_fwd_lifted(*args, to_mont=to_mont)
+        assert cuda_lib.launches["ntt_fwd_lifted"] == before + 1
+        assert torch.equal(got, fused_ntt.ntt_fwd_lifted_plain(
+            *args, to_mont=to_mont))
+
+
+@pytest.mark.parametrize("kind", ["lift", "lift_short", "moddown", "tail"])
+@pytest.mark.parametrize("logn", [10, 11, 12])
+def test_centered_kernel_every_cluster(dev, logn, kind):
+    """ntt_fwd_centered at an N of each cluster size it launches: the
+    centered lift of every digit in one launch (full and short last
+    digit), and the centered mod-down and tail conversions with α."""
+    ctx = _small_ctx(dev, logn)
+    n = 1 << logn
+    rng = np.random.default_rng(logn + len(kind))
+    before = cuda_lib.launches["ntt_fwd_centered"]
+    if kind.startswith("lift"):
+        level = 4 if kind == "lift_short" else 5
+        ks = ctx.keyswitch_plan(level)
+        y = _res(rng, (3, level + 1, n), ctx.params.moduli[: level + 1], dev)
+        lift = (ks.lift_w, ks.lift_ws, ks.lift_dig, ks.q[: level + 1],
+                ks.foreign_cat_tables)
+        got = fused_ntt.ntt_fwd_centered_lift(y, *lift)
+        want = fused_ntt.ntt_fwd_centered_lift_plain(y, *lift)
+    else:
+        md = (ctx.keyswitch_plan(5).moddown if kind == "moddown"
+              else ctx.moddown_rescale_plan(5))
+        plan = ctx.centered_fbc_plan(md.fbc)
+        u = _res(rng, (2, 2, plan.S, n), md.src_tables.primes, dev)
+        got = fused_ntt.ntt_fwd_centered_fbc(u, plan, md.dst_tables)
+        want = fused_ntt.ntt_fwd_centered_fbc_plain(u, plan, md.dst_tables)
+    assert cuda_lib.launches["ntt_fwd_centered"] == before + 1
+    assert torch.equal(got, want)
+
+
 def test_fbc_kernel(dev, ctx):
     mdr = ctx.moddown_rescale_plan(5)
     u = _res(np.random.default_rng(3), (2, 2, len(mdr.src_tables.primes),
@@ -188,7 +254,8 @@ def test_slice_golden_and_counters(dev):
     counts = cuda_lib.launches
     assert all(counts[k] > 0 for k in ("ntt", "ntt_fwd_lifted", "ntt_fwd_fbc",
                                        "inner_product")), counts
-    assert counts["centered_fbc"] == 0, counts       # default FBC path
+    # default FBC path
+    assert counts["centered_fbc"] == counts["ntt_fwd_centered"] == 0, counts
 
 
 def test_bench_n14_b1_equals_cpu(dev):
@@ -205,21 +272,9 @@ def test_bench_n14_b1_equals_cpu(dev):
 
 
 # ----------------------------------------------------------------------
-# centered_fbc (K5), the α near-ties (K3, K5), rotation and inference
+# centered_fbc (K5) and its path form ntt_fwd_centered, the α near-ties
+# (K3, K5), rotation and inference
 # ----------------------------------------------------------------------
-
-# test_dnum fused-tail sources (q_7 + 3 specials): columns where an fma
-# chain and a multiply-then-add chain round α differently
-# (tests/test_torch_alpha.py checks them against hetpu)
-TIES_DNUM = [[508039856, 1099080352, 1621637186, 1631625018],
-             [37419502, 309566830, 1767178876, 1069488476],
-             [454505166, 586600971, 1777398114, 2095414402],
-             [92054122, 59180148, 1858753445, 1119026592]]
-TIES_DNUM_CENTERED = [[362438493, 1635477856, 1308414874, 1699663812],
-                      [635511566, 1792818991, 214954608, 2089613811],
-                      [832047190, 1506075342, 338069672, 1860156527],
-                      [267531152, 2002721513, 383764152, 299512774]]
-
 
 @pytest.fixture(scope="module")
 def n14(dev):
@@ -234,7 +289,8 @@ def test_centered_fbc_kernel(dev, n14, kind):
     [8,2,6,N]→[8,2,8,N]."""
     lvl = 8
     if kind.startswith("lift"):
-        plan, lead = n14.centered_lift_plan(lvl, int(kind[-1])), (8,)
+        plan = centered_fbc.lift_plan(n14.keyswitch_plan(lvl), int(kind[-1]))
+        lead = (8,)
     elif kind == "moddown":
         plan = n14.centered_fbc_plan(n14.keyswitch_plan(lvl).moddown.fbc)
         lead = (8, 2)
@@ -252,6 +308,38 @@ def test_centered_fbc_kernel(dev, n14, kind):
     assert torch.equal(got, plan.apply_plain(y))
 
 
+@pytest.mark.parametrize("kind", ["lift", "moddown", "tail", "tail_ties"])
+def test_centered_ntt_kernel_bench_n14(dev, n14, kind):
+    """ntt_fwd_centered at the bench_n14 B=8 shapes at level 8: the lift
+    of both digits [8,9,N]→[8,19,N], mod-down [8,2,5,N]→[8,2,9,N], tail
+    [8,2,6,N]→[8,2,8,N], and the tail on centered near-tie α columns."""
+    lvl, n = 8, 16384
+    if kind == "lift":
+        ks = n14.keyswitch_plan(lvl)
+        y = _res(np.random.default_rng(7), (8, lvl + 1, n),
+                 n14.params.moduli[: lvl + 1], dev)
+        lift = (ks.lift_w, ks.lift_ws, ks.lift_dig, ks.q[: lvl + 1],
+                ks.foreign_cat_tables)
+        got = fused_ntt.ntt_fwd_centered_lift(y, *lift)
+        assert got.shape == (8, 19, n)
+        assert torch.equal(got, fused_ntt.ntt_fwd_centered_lift_plain(
+            y, *lift))
+        return
+    md = (n14.keyswitch_plan(lvl).moddown if kind == "moddown"
+          else n14.moddown_rescale_plan(lvl))
+    plan = n14.centered_fbc_plan(md.fbc)
+    if kind == "tail_ties":
+        cols = np.array(TIES_N14_TAIL_CENTERED, dtype=np.uint32).T
+        u = from_u32(np.tile(cols, (8, 2, 1, n // cols.shape[1])), dev)
+    else:
+        u = _res(np.random.default_rng(len(kind)), (8, 2, plan.S, n),
+                 md.src_tables.primes, dev)
+    got = fused_ntt.ntt_fwd_centered_fbc(u, plan, md.dst_tables)
+    assert got.shape == (8, 2, plan.F, n)
+    assert torch.equal(got, fused_ntt.ntt_fwd_centered_fbc_plain(
+        u, plan, md.dst_tables))
+
+
 def test_alpha_ties_on_the_card(dev):
     """K3 and K5 round α on the near-tie columns as their plain versions
     (the fma chain of hetpu's jitted α)."""
@@ -265,6 +353,9 @@ def test_alpha_ties_on_the_card(dev):
     plan = ctx.centered_fbc_plan(mdr.fbc)
     y = from_u32(cols(TIES_DNUM_CENTERED), dev)
     assert torch.equal(plan.apply(y), plan.apply_plain(y))
+    assert torch.equal(
+        fused_ntt.ntt_fwd_centered_fbc(y, plan, mdr.dst_tables),
+        fused_ntt.ntt_fwd_centered_fbc_plain(y, plan, mdr.dst_tables))
 
 
 def test_fused_rot_golden_on_the_card(dev):
@@ -290,7 +381,13 @@ def test_infer_step_card_equals_cpu(dev, centered):
     diags, act = pipeline._infer_weights(sess.slots, 4, 7)
     cuda_lib.reset_launches()
     out = pipeline.infer_step(sess, ct, diags, act)
-    assert (cuda_lib.launches["centered_fbc"] > 0) == centered
+    counts = cuda_lib.launches
+    assert (counts["ntt_fwd_centered"] > 0) == centered, counts
+    # the centered path fuses every lift and conversion into
+    # ntt_fwd_centered; the default path never launches it
+    off = ("centered_fbc", "ntt_fwd_lifted", "ntt_fwd_fbc") if centered \
+        else ("centered_fbc",)
+    assert all(counts[k] == 0 for k in off), counts
     dec = sess.decrypt(out).real
     for i in range(2):
         assert np.abs(dec[i] - pipeline.infer_reference(x[i], diags, act)

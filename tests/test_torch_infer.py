@@ -62,7 +62,8 @@ def test_infer_step(ref_env, centered, monkeypatch):
     got = pipeline.infer_step(port, convert.ciphertext(batch, "cpu"), pdiags,
                               pact)
     assert sum(cuda_lib.launches.values()) == 0        # CPU: plain paths
-    assert any(k[0] == "clift" for k in port.ctx._memo) == centered
+    # the centered path built (and cached) its centered conversion plans
+    assert any(k[0] == "cfbc" for k in port.ctx._memo) == centered
     assert (got.level, got.scale) == (want.level, want.scale)
     np.testing.assert_array_equal(to_u32(got.data), np.asarray(want.data))
     dec = port.decrypt(got).real
