@@ -31,10 +31,19 @@ run exits non-zero without a result line):
      fused with the forward NTT) at the centered lift [8,9,N]→[8,19,N],
      the tail and the mod-down; K3, K5 and K6 also on near-tie α columns
      built here for the bench_n14 tail plan (columns where an fma chain
-     and a multiply-then-add chain round α differently);
+     and a multiply-then-add chain round α differently); then the shapes
+     of the BFV path at bfv_batch's top level (K1 [8,2,7,N], [8,3,7,N]
+     over Q, [8,2,10,N], [8,3,10,N] over the auxiliary basis, [1,N] over a
+     t factor; K2 and the K6 lift [8,7,N]→[8,29,N] with a short last
+     digit; K3 and K6 mod-down [8,2,2,N]→[8,2,7,N]; K4 at J=4, R=9) and of
+     the paired-prime path at ckks_hi14's top level (K1 [8,2,2,N] and
+     [8,2,5,N]; K3 and K6 pair [8,2,2,N]→[8,2,10,N] and fused tail
+     [8,2,5,N]→[8,2,10,N]);
   5. goldens — Session "test_dnum" (seed 0x33) on the card:
      multiply_relin_rescale on golden_pins fused_a/fused_b = fused_out and
      rotate by 1 = fused_rot; golden_n14 rs_n14 through Evaluator.rescale;
+     BfvSession "test_bfv_crt" (seed 0x34): multiply_relin of bfv_a/bfv_b
+     = bfv_out;
   6. main path — Session.create("bench_n14", seed 0x21) on the card,
      encrypt x and y at B=8, multiply_relin_rescale, decrypt: max error
      against x·y < 2e-3; the B=1 output equals the plain path on the CPU
@@ -54,7 +63,20 @@ run exits non-zero without a result line):
  10. profile — torch.profiler over 5 infer_step calls in each mode: device
      time per call by kernel (K1–K6, the plain PyTorch kernels by name),
      device kernels per call, and the device's busy share of the wall time;
- 11. probes — the micro-benchmark kernels P1 copy_planes, P2 muladd_u32,
+ 11. BFV path — BfvSession.create("bfv_batch", seed 0x35, galois_steps
+     [1]): B=8 slot vectors mod t through multiply_relin, rotate_rows(1)
+     and mod_switch, each row decrypted exactly (Python ints), noise
+     budget > 0, the B=1 output equal to the CPU plain path, K1–K4
+     launched; multiply_relin timed (ops/s) and profiled, with the
+     precise-α conversions' device time and kernels;
+ 12. paired-prime path — Session.create("ckks_hi14", seed 0x36) at B=8 in
+     both FBC modes: fused multiply_relin_rescale within 2e-9 of x·y (see
+     HI_ERR), the standalone rescale(relinearize(multiply)) within 1e-9
+     of it, B=1 equal to the CPU plain path, K3 (default) or K6
+     (centered, no K2 or K3) launched, both ops timed;
+ 13. wire — every blob kind of core/serial round-trips on the card, and a
+     from_wire session on the loaded keys gives phase 6's bits;
+ 14. probes — the micro-benchmark kernels P1 copy_planes, P2 muladd_u32,
      P3 dot_i8 and P4 plane_parts against their plain versions at each
      probe's own shapes, exact (P3 on all four u8/s8 pairs at [128,256]@
      [256,128], then [512,512]@[512,128] and 288 planes; P4 in all six
@@ -73,10 +95,10 @@ Launch counts are zeroed just before each path and read just after it
 (a CUDA graph's replay counts the kernels its capture recorded); the
 ``kernels`` line reports each kernel's launches on the inference path
 (K5, K6: on its centered run, where the standalone K5 reads 0; P1–P4: on
-the probes' run), its eager ``ms``
-and cold-L2 ``graph_ms``, the library call's eager ms, and under
-``cases`` the times of each shape it was compared at.  The last
-line is
+the probes' run) and, under ``launches_by_path``, on every path (the BFV
+multiply_relin and chain, each paired-prime op in each mode), its eager
+``ms`` and cold-L2 ``graph_ms``, the library call's eager ms, and under
+``cases`` the times of each shape it was compared at.  The last line is
 {"ok": true, "device": {"platform": "gpu", ...}}.
 Imports only hetpu_torch, torch and numpy (no JAX, no hetpu).
 ``kernel_ab.py`` reuses its K1/K2/K3/K6 cases, host timing and profile
@@ -95,15 +117,20 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from hetpu_torch.core import centered_fbc, cuda_lib, fused_ntt, ip_kernel
+from hetpu_torch.bfv import BfvSession
+from hetpu_torch.core import (centered_fbc, cuda_lib, fused_ntt, ip_kernel,
+                              serial)
+from hetpu_torch.core.bfv import BfvScheme
 from hetpu_torch.core.centered_fbc import CenteredFbcPlan
 from hetpu_torch.core.ciphertext import Ciphertext
 from hetpu_torch.core.context import Context
 from hetpu_torch.core.evaluator import Evaluator
+from hetpu_torch.core.keys import KeyGenerator
 from hetpu_torch.core.modular import from_u32, shoup_companion, to_u32
 from hetpu_torch.core.ntt import (build_tables, ntt_fwd, ntt_fwd_mont,
                                   ntt_fwd_plain, ntt_inv, ntt_inv_plain)
 from hetpu_torch.core.params import preset
+from hetpu_torch.core.rns import fbc_apply
 from hetpu_torch import probes
 from hetpu_torch.offload import pipeline
 from hetpu_torch.probes import copy as copy_probe
@@ -113,10 +140,22 @@ from hetpu_torch.session import Session
 GOLD = Path(__file__).resolve().parent / "tests" / "golden"
 B = 8
 LEVEL = 8                      # bench_n14's top level: 9 data primes
+BFV_LEVEL = 6                  # bfv_batch's top level: 7 data primes
+HI_LEVEL = 11                  # ckks_hi14's top level: 12 data primes
+# ckks_hi14's bound on a product's decrypt error.  The error is the pair
+# rescale's rounding u0 + u1·s.  In a slot it is U(ζ)·S(ζ), the rounding's
+# evaluation times the secret's, whose standard deviation grows as N at a
+# fixed scale (1.55e-10 for a real part at N=2^14, scale 2^44) and whose
+# tail is heavy (S(ζ) is the same in every row), so the largest of B·N/2
+# slots lands near 1e-9.  tests/test_hiprec.py's 1e-9 is set at N=2^10.
+HI_ERR = 2e-9
+HI_SAME = 1e-9                 # fused against standalone (test_hiprec.py)
 TIMED_RUNS = 20
 OP_ITERS = 200
 INFER_ITERS = 50
 PROFILE_ITERS = 5
+BFV_ITERS = 50
+HI_ITERS = 50
 N_DIAGS, WSEED = 8, 7
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 INT8_OPS_PER_S = 1.979e15      # H100 SXM int8 tensor cores, dense (data sheet)
@@ -420,6 +459,60 @@ def centered_cases(rng, ctx) -> dict:
     return out
 
 
+def ntt_compare(name, x, t, kw) -> dict:
+    """K1 against its plain version: the inverse for names ``ntt_inv*``."""
+    inv = name.startswith("ntt_inv")
+    return compare(
+        name, lambda: (ntt_inv if inv else ntt_fwd)(x, t, **kw),
+        lambda: (ntt_inv_plain if inv else ntt_fwd_plain)(x, t, **kw),
+        [x, *twiddles(t, inv)], imul=ntt_imuls(x.numel() // t.n, t.n))
+
+
+def lift_compare(name, x, ks, level: int, centered: bool = False) -> dict:
+    """K2 (or K6's centered lift) of the key-switch plan ``ks`` on x, the
+    [B, level+1, N] decompose-INTT output."""
+    ft = ks.foreign_cat_tables
+    if centered:
+        args = (ks.lift_w, ks.lift_ws, ks.lift_dig, ks.q[: level + 1], ft)
+        return compare(
+            name, lambda: fused_ntt.ntt_fwd_centered_lift(x, *args),
+            lambda: fused_ntt.ntt_fwd_centered_lift_plain(x, *args),
+            [x, *lift_tensors(ks, ft), ks.q[: level + 1]],
+            imul=lift_imuls(x, ks))
+    args = (ks.lift_w, ks.lift_ws, ks.lift_dig, ft)
+    return compare(name, lambda: fused_ntt.ntt_fwd_lifted(x, *args),
+                   lambda: fused_ntt.ntt_fwd_lifted_plain(x, *args),
+                   [x, *lift_tensors(ks, ft)], imul=lift_imuls(x, ks))
+
+
+def fbc_compare(name, u, fbc, dt) -> dict:
+    """K3: the conversion of u by ``fbc`` onto ``dt``, forward NTT ×R."""
+    return compare(name, lambda: fused_ntt.ntt_fwd_fbc(u, fbc, dt),
+                   lambda: fused_ntt.ntt_fwd_fbc_plain(u, fbc, dt),
+                   [u, *fbc_tensors(fbc, dt)], imul=fbc_imuls(u, dt))
+
+
+def centered_compare(name, u, plan, dt) -> dict:
+    """K6: the centered conversion of u by ``plan`` onto ``dt``."""
+    return compare(name, lambda: fused_ntt.ntt_fwd_centered_fbc(u, plan, dt),
+                   lambda: fused_ntt.ntt_fwd_centered_fbc_plain(u, plan, dt),
+                   [u, *plan_tensors(plan), *twiddles(dt)],
+                   imul=fbc_imuls(u, dt))
+
+
+def ip_compare(name, rng, ks) -> dict:
+    """K4 over the key basis of ``ks`` at B rows: ext [B, J, R, N]."""
+    n = ks.basis_tables.n
+    R = len(ks.basis_tables.primes)
+    J = ks.num_digits
+    ext = residues(rng, (B, J, R, n), ks.basis_tables.primes)
+    k = residues(rng, (J, 2, R, n), ks.basis_tables.primes)
+    k_sh = shoup_companion(k, ks.q)
+    return compare(name, lambda: ip_kernel.inner_product(ext, k, k_sh, ks.q),
+                   lambda: ip_kernel.inner_product_plain(ext, k, k_sh, ks.q),
+                   [ext, k, k_sh])
+
+
 def phase_kernels(rng) -> dict:
     ctx = Context(preset("bench_n14"))
     n = ctx.params.poly_degree
@@ -428,54 +521,23 @@ def phase_kernels(rng) -> dict:
     out = {}
 
     k1 = ntt_cases(rng, ctx)
-    for name, (x, t, kw) in k1.items():
-        inv = name.startswith("ntt_inv")
-        out[name] = compare(
-            name, lambda: (ntt_inv if inv else ntt_fwd)(x, t, **kw),
-            lambda: (ntt_inv_plain if inv else ntt_fwd_plain)(x, t, **kw),
-            [x, *twiddles(t, inv)],
-            imul=ntt_imuls(x.numel() // t.n, t.n))
+    for name, case in k1.items():
+        out[name] = ntt_compare(name, *case)
 
     x = k1["ntt_inv"][0]
-    ft = ks.foreign_cat_tables
-    lift = (ks.lift_w, ks.lift_ws, ks.lift_dig, ft)
-    clift = (ks.lift_w, ks.lift_ws, ks.lift_dig, ks.q[: LEVEL + 1], ft)
-    out["ntt_fwd_lifted"] = compare(
-        "ntt_fwd_lifted",
-        lambda: fused_ntt.ntt_fwd_lifted(x, *lift),
-        lambda: fused_ntt.ntt_fwd_lifted_plain(x, *lift),
-        [x, *lift_tensors(ks, ft)], imul=lift_imuls(x, ks))
+    out["ntt_fwd_lifted"] = lift_compare("ntt_fwd_lifted", x, ks, LEVEL)
 
     # K6: the centered lift of both digits [8,9,N]→[8,19,N] (x holds
     # residues of the level's primes), the centered tail and mod-down
-    out["ntt_fwd_centered_lift"] = compare(
-        "ntt_fwd_centered lift",
-        lambda: fused_ntt.ntt_fwd_centered_lift(x, *clift),
-        lambda: fused_ntt.ntt_fwd_centered_lift_plain(x, *clift),
-        [x, *lift_tensors(ks, ft), ks.q[: LEVEL + 1]], imul=lift_imuls(x, ks))
+    out["ntt_fwd_centered_lift"] = lift_compare("ntt_fwd_centered lift", x,
+                                                ks, LEVEL, centered=True)
     for name, (u, fbc, plan, dt) in centered_cases(rng, ctx).items():
-        out[name] = compare(
-            name, lambda: fused_ntt.ntt_fwd_centered_fbc(u, plan, dt),
-            lambda: fused_ntt.ntt_fwd_centered_fbc_plain(u, plan, dt),
-            [u, *plan_tensors(plan), *twiddles(dt)],
-            imul=fbc_imuls(u, dt))
+        out[name] = centered_compare(name, u, plan, dt)
 
     for name, (u, fbc, dt) in fbc_cases(rng, ctx).items():
-        out[name] = compare(
-            name, lambda: fused_ntt.ntt_fwd_fbc(u, fbc, dt),
-            lambda: fused_ntt.ntt_fwd_fbc_plain(u, fbc, dt),
-            [u, *fbc_tensors(fbc, dt)], imul=fbc_imuls(u, dt))
+        out[name] = fbc_compare(name, u, fbc, dt)
 
-    R = len(ks.basis_tables.primes)
-    J = ks.num_digits
-    ext = residues(rng, (B, J, R, n), ks.basis_tables.primes)
-    k = residues(rng, (J, 2, R, n), ks.basis_tables.primes)
-    k_sh = shoup_companion(k, ks.q)
-    out["inner_product"] = compare(
-        "inner_product",
-        lambda: ip_kernel.inner_product(ext, k, k_sh, ks.q),
-        lambda: ip_kernel.inner_product_plain(ext, k, k_sh, ks.q),
-        [ext, k, k_sh])
+    out["inner_product"] = ip_compare("inner_product", rng, ks)
 
     # K5 at the four bench_n14 B=8 shapes of the centered path
     k5 = {"centered_fbc_tail": (ctx.centered_fbc_plan(mdr.fbc), (B, 2)),
@@ -493,25 +555,70 @@ def phase_kernels(rng) -> dict:
     src, dt = mdr.src_tables.primes, mdr.dst_tables
     cols = near_tie_columns(src, False, 16, seed=1)
     u_tie = from_u32(np.tile(cols, (B, 2, 1, n // cols.shape[1])), "cuda")
-    out["ntt_fwd_fbc_ties"] = compare(
-        "ntt_fwd_fbc near-tie columns",
-        lambda: fused_ntt.ntt_fwd_fbc(u_tie, mdr.fbc, dt),
-        lambda: fused_ntt.ntt_fwd_fbc_plain(u_tie, mdr.fbc, dt),
-        [u_tie, *fbc_tensors(mdr.fbc, dt)], imul=fbc_imuls(u_tie, dt))
+    out["ntt_fwd_fbc_ties"] = fbc_compare("ntt_fwd_fbc near-tie columns",
+                                          u_tie, mdr.fbc, dt)
     plan = k5["centered_fbc_tail"][0]
     cols = near_tie_columns(src, True, 16, seed=2)
     y_tie = from_u32(np.tile(cols, (B, 2, 1, n // cols.shape[1])), "cuda")
     out["centered_fbc_ties"] = compare(
         "centered_fbc near-tie columns", lambda: plan.apply(y_tie),
         lambda: plan.apply_plain(y_tie), [y_tie, *plan_tensors(plan)])
-    out["ntt_fwd_centered_ties"] = compare(
-        "ntt_fwd_centered near-tie columns",
-        lambda: fused_ntt.ntt_fwd_centered_fbc(y_tie, plan, dt),
-        lambda: fused_ntt.ntt_fwd_centered_fbc_plain(y_tie, plan, dt),
-        [y_tie, *plan_tensors(plan), *twiddles(dt)],
-        imul=fbc_imuls(y_tie, dt))
+    out["ntt_fwd_centered_ties"] = centered_compare(
+        "ntt_fwd_centered near-tie columns", y_tie, plan, dt)
+    out.update(slice6_kernel_cases(rng))
     for name, r in out.items():
         log("kernel_vs_plain", kernel=name, **r)
+    return out
+
+
+def slice6_kernel_cases(rng) -> dict:
+    """K1–K4 and K6 at the B=8 shapes that the BFV path (bfv_batch, top
+    level) and the paired-prime path (ckks_hi14, top level) give them."""
+    out = {}
+    bctx = Context(preset("bfv_batch"))
+    n = bctx.params.poly_degree
+    scheme = BfvScheme(bctx)
+    lvl = scheme._lvl(BFV_LEVEL)
+    tq, tb = bctx.tables(BFV_LEVEL), lvl["tables_B"]
+    tt = scheme.tables_t[scheme.t_factors[0]]
+    hctx = Context(preset("ckks_hi14"))
+    hn = hctx.params.poly_degree
+    grs = hctx.group_rescale_plan(HI_LEVEL)
+    mdr = hctx.moddown_rescale_plan(HI_LEVEL)
+    L, K = BFV_LEVEL + 1, len(tb.primes)
+    k1 = {  # BFV: the INTTs of a 2-part input and of the 3-part product
+            # over Q, the forward NTT ×R and the INTT over the auxiliary
+            # basis B, the t factor's transforms of encode and decode
+          "ntt_inv_bfv_q2": ((B, 2, L, n), tq, dict(strip_mont=True)),
+          "ntt_inv_bfv_q3": ((B, 3, L, n), tq, dict(strip_mont=True)),
+          "ntt_fwd_bfv_b2": ((B, 2, K, n), tb, dict(to_mont=True)),
+          "ntt_inv_bfv_b3": ((B, 3, K, n), tb, dict(strip_mont=True)),
+          "ntt_inv_bfv_t": ((1, n), tt, {}),
+          # g=2: the pair's INTT and the fused tail's (pair + specials)
+          "ntt_inv_pair": ((B, 2, len(grs.src_tables.primes), hn),
+                           grs.src_tables,
+                           dict(strip_mont=True, extra=grs.fbc.inv_punit)),
+          "ntt_inv_hi_tail": ((B, 2, len(mdr.src_tables.primes), hn),
+                              mdr.src_tables,
+                              dict(strip_mont=True, extra=mdr.fbc.inv_punit))}
+    for name, (shape, t, kw) in k1.items():
+        out[name] = ntt_compare(name, residues(rng, shape, t.primes), t, kw)
+    ks = bctx.keyswitch_plan(BFV_LEVEL)
+    y = residues(rng, (B, L, n), tq.primes)
+    out["ntt_fwd_lifted_bfv"] = lift_compare("ntt_fwd_lifted bfv", y, ks,
+                                             BFV_LEVEL)
+    out["ntt_fwd_centered_bfv_lift"] = lift_compare(
+        "ntt_fwd_centered bfv lift", y, ks, BFV_LEVEL, centered=True)
+    for tag, ctx, plan in (("bfv_moddown", bctx, ks.moddown),
+                           ("pair", hctx, grs), ("hi_tail", hctx, mdr)):
+        src = plan.src_tables.primes
+        u = residues(rng, (B, 2, len(src), ctx.params.poly_degree), src)
+        out["ntt_fwd_fbc_" + tag] = fbc_compare(
+            "ntt_fwd_fbc " + tag, u, plan.fbc, plan.dst_tables)
+        out["ntt_fwd_centered_" + tag] = centered_compare(
+            "ntt_fwd_centered " + tag, u, ctx.centered_fbc_plan(plan.fbc),
+            plan.dst_tables)
+    out["inner_product_bfv"] = ip_compare("inner_product bfv", rng, ks)
     return out
 
 
@@ -544,8 +651,19 @@ def phase_goldens() -> None:
     if not np.array_equal(rs, z["rs_n14_out"]):
         raise AssertionError(f"rs_n14 differs in "
                              f"{int((rs != z['rs_n14_out']).sum())} elements")
+    # bfv_out, fed as tests/test_golden.py:test_bfv_multiply_pin feeds it
+    z = np.load(GOLD / "golden_pins.npz")
+    bs = BfvSession.create("test_bfv_crt", seed=b"\x34" * 32,
+                           galois_steps=[1])
+    proto = bs.encrypt(np.zeros(4, dtype=np.int64))
+    out = bs.multiply_relin(proto.with_(data=from_u32(z["bfv_a"], "cuda")),
+                            proto.with_(data=from_u32(z["bfv_b"], "cuda")))
+    got = to_u32(out.data)
+    if not np.array_equal(got, z["bfv_out"]):
+        raise AssertionError(f"bfv_out differs in "
+                             f"{int((got != z['bfv_out']).sum())} elements")
     log("goldens", preset="test_dnum", fused_out=True, fused_rot=True,
-        rs_n14=True, exact=True)
+        rs_n14=True, bfv_out=True, exact=True)
 
 
 def stack(cts) -> Ciphertext:
@@ -742,6 +860,240 @@ def phase_profile(sess, cent, ct, diags, act, smi: str) -> None:
             plain_top_us=top, card=smi)
 
 
+def _counted(fn):
+    """``fn()`` with the launch counts zeroed just before it and read just
+    after it (synchronised): (result, launches)."""
+    cuda_lib.reset_launches()
+    r = fn()
+    torch.cuda.synchronize()
+    return r, dict(cuda_lib.launches)
+
+
+def _need(launches: dict, kernels, what: str, absent=()) -> None:
+    missing = [k for k in kernels if launches[k] <= 0]
+    extra = [k for k in absent if launches[k]]
+    if missing or extra:
+        raise AssertionError(f"{what}: kernels not launched {missing}, "
+                             f"launched {extra}: {launches}")
+
+
+def _bfv_chain(s, a, b):
+    """The BFV path: multiply + relinearize, rotate the rows by 1, drop the
+    last prime."""
+    return s.mod_switch(s.rotate_rows(s.multiply_relin(a, b), 1))
+
+
+def phase_bfv(rng, smi: str):
+    """BfvSession on the card at bfv_batch (the reference's
+    batch_matmul_bfv configuration: N=2^14, 7 data primes, 2 special
+    primes, t = t₁·t₂ ≈ 2^60): B=8 slot vectors through the BFV path,
+    decrypted exactly; the B=1 output equals the CPU plain path; then its
+    multiply_relin timed and profiled."""
+    t0 = time.perf_counter()
+    sess = BfvSession.create("bfv_batch", seed=b"\x35" * 32,
+                             galois_steps=[1])
+    t = sess.ctx.params.plain_modulus
+    xs = rng.integers(0, t, (2, B, sess.slots), dtype=np.uint64)
+    a = stack([sess.encrypt(v) for v in xs[0]])
+    b = stack([sess.encrypt(v) for v in xs[1]])
+    setup = time.perf_counter() - t0
+    _, mr_launches = _counted(lambda: sess.multiply_relin(a, b))
+    out, launches = _counted(lambda: _bfv_chain(sess, a, b))
+    n = sess.ctx.params.poly_degree
+    if out.data.shape != (B, 2, BFV_LEVEL, n) or out.level != BFV_LEVEL - 1:
+        raise AssertionError(f"bfv: bad output {tuple(out.data.shape)}")
+    half = sess.slots // 2
+    for i in range(B):
+        prod = [int(x) * int(y) % t for x, y in zip(xs[0, i], xs[1, i])]
+        want = prod[1:half] + prod[:1] + prod[half + 1:] + prod[half:half + 1]
+        got = [int(v) for v in sess.decrypt(out.with_(data=out.data[i]))]
+        if got != want:
+            bad = sum(g != w for g, w in zip(got, want))
+            raise AssertionError(f"bfv: row {i} decrypts wrong in {bad} "
+                                 "slots")
+    budget = sess.noise_budget(out.with_(data=out.data[0]))
+    if not budget > 0:
+        raise AssertionError(f"bfv: noise budget {budget}")
+    _need(mr_launches, ("ntt", "ntt_fwd_lifted", "ntt_fwd_fbc",
+                        "inner_product"), "bfv multiply_relin",
+          absent=("ntt_fwd_centered", "centered_fbc"))
+    # B=1: the card's output equals the plain path on the CPU (same keys)
+    a1 = a.with_(data=a.data[0].contiguous())
+    b1 = b.with_(data=b.data[0].contiguous())
+    out1 = _bfv_chain(sess, a1, b1).data.cpu()
+    t1 = time.perf_counter()
+    cctx = Context(sess.ctx.params, "cpu")
+    cpu = BfvSession(ctx=cctx, scheme=BfvScheme(cctx), ev=Evaluator(cctx),
+                     rk=sess.rk.to("cpu"), gk=sess.gk.to("cpu"),
+                     encryptor=None, sk_data=None)
+    ref1 = _bfv_chain(cpu, a1.to("cpu"), b1.to("cpu")).data
+    cpu_seconds = time.perf_counter() - t1
+    if not torch.equal(out1, ref1) or not torch.equal(out1, out.data[0].cpu()):
+        raise AssertionError("bfv: B=1 output differs from the CPU plain "
+                             "path or from row 0 of B=8")
+    log("bfv_path", preset="bfv_batch", batch=B, t_bits=t.bit_length(),
+        aux_primes=len(sess.scheme._lvl(BFV_LEVEL)["B_primes"]),
+        exact=True, noise_budget=budget, setup_seconds=round(setup, 3),
+        cpu_b1_seconds=round(cpu_seconds, 3), cpu_plain_equal=True,
+        launches_multiply_relin=mr_launches, launches=launches)
+    ms = calls_ms(lambda: sess.multiply_relin(a, b), BFV_ITERS)
+    log("time", op="bfv multiply_relin", preset="bfv_batch", batch=B,
+        iters=BFV_ITERS, ms_per_call=ms, ops_per_s=B * 1000.0 / ms, card=smi)
+    r = profile_calls(lambda: sess.multiply_relin(a, b))
+    # the precise-α conversions of one multiply at the shapes it gives them:
+    # both inputs to B, r = |t·x|_Q to B, the scaled y back to Q
+    lvl = sess.scheme._lvl(BFV_LEVEL)
+    L, K = BFV_LEVEL + 1, len(lvl["B_primes"])
+    convs = {"q_to_b [8,2,7,N] x2": (2, (B, 2, L), lvl["fbc_q_to_b"]),
+             "q_to_b [8,3,7,N]": (1, (B, 3, L), lvl["fbc_q_to_b"]),
+             "b_to_q [8,3,10,N]": (1, (B, 3, K), lvl["fbc_b_to_q"])}
+    precise = {}
+    for key, (times, lead, plan) in convs.items():
+        u = residues(rng, (*lead, n), to_u32(plan.p)[:, 0])
+        c = profile_calls(lambda: fbc_apply(u, plan, precise=True))
+        precise[key] = {"device_us": times * c["device_us"],
+                        "kernels": times * c["kernels"]}
+    p_us = sum(v["device_us"] for v in precise.values())
+    p_k = sum(v["kernels"] for v in precise.values())
+    top = dict(sorted(r["plain"].items(), key=lambda kv: -kv[1])[:8])
+    log("profile", op="bfv multiply_relin", preset="bfv_batch", batch=B,
+        calls=PROFILE_ITERS, wall_us_per_call=r["wall_us"],
+        device_us_per_call=r["device_us"],
+        device_busy_share=r["device_us"] / r["wall_us"],
+        device_kernels_per_call=r["kernels"], our_kernels_us=r["ours"],
+        plain_us=sum(r["plain"].values()), plain_top_us=top,
+        precise_fbc_us=p_us, precise_fbc_kernels=p_k,
+        precise_fbc_share=p_us / r["device_us"], precise_fbc=precise,
+        card=smi)
+    return sess, a, {"bfv_multiply_relin": mr_launches, "bfv_path": launches}
+
+
+def phase_hi(rng, smi: str) -> dict:
+    """The paired-prime rescale on the card at ckks_hi14 (N=2^14, 2 anchor
+    primes + 5 pairs of 17–31 bits, 3 special primes, scale ≈ 2^44), B=8,
+    in both FBC modes (centered through Session.from_wire on the same
+    keys): the fused multiply_relin_rescale drops two levels within
+    HI_ERR of x·y, and the standalone rescale(relinearize(multiply))
+    matches it within HI_SAME; B=1 equals the CPU plain path; K3 runs on
+    the default path, K6 (not K2 or K3) on the centered one.  The inputs
+    are secret-key (seeded) encryptions, the reference client's compact
+    form: a public-key encryption's fresh noise grows with N to ~1e-8 in
+    a slot here and would hide the rescale's."""
+    t0 = time.perf_counter()
+    sess = Session.create("ckks_hi14", seed=b"\x36" * 32, galois_steps=[1])
+    x = rng.uniform(-1, 1, (B, sess.slots))
+    y = rng.uniform(-1, 1, (B, sess.slots))
+    enc = lambda v, i: sess.encryptor.encrypt_symmetric(
+        sess.encode(v), seed=bytes([0x60 + i]) * 32)
+    a = stack([enc(v, i) for i, v in enumerate(x)])
+    b = stack([enc(v, B + i) for i, v in enumerate(y)])
+    cent = Session.from_wire(sess.ctx.params, sess.rk, sess.gk,
+                             centered_fbc=True)
+    log("hi_setup", preset="ckks_hi14", seconds=round(time.perf_counter()
+                                                      - t0, 3))
+    fused_op = lambda s, a, b: s.ev.multiply_relin_rescale(a, b, s.rk)
+    steps_op = lambda s, a, b: s.ev.rescale(s.ev.relinearize(
+        s.ev.multiply(a, b), s.rk))
+    out = {}
+    for mode, s in (("default", sess), ("centered_fbc", cent)):
+        fused, lf = _counted(lambda: fused_op(s, a, b))
+        steps, ls = _counted(lambda: steps_op(s, a, b))
+        if not fused.level == steps.level == HI_LEVEL - 2:
+            raise AssertionError(f"hi {mode}: levels {fused.level}, "
+                                 f"{steps.level}")
+        df, ds = sess.decrypt(fused).real, sess.decrypt(steps).real
+        err = float(np.abs(df - x * y).max())
+        diff = float(np.abs(df - ds).max())
+        if not (err < HI_ERR and diff < HI_SAME):
+            raise AssertionError(f"hi {mode}: error {err} (bound {HI_ERR}), "
+                                 f"fused against standalone {diff} (bound "
+                                 f"{HI_SAME})")
+        for name, lc in (("fused", lf), ("standalone", ls)):
+            if mode == "default":
+                _need(lc, ("ntt", "ntt_fwd_lifted", "ntt_fwd_fbc",
+                           "inner_product"), f"hi {mode} {name}",
+                      absent=("ntt_fwd_centered", "centered_fbc"))
+            else:
+                _need(lc, ("ntt", "ntt_fwd_centered", "inner_product"),
+                      f"hi {mode} {name}", absent=(
+                          "ntt_fwd_lifted", "ntt_fwd_fbc", "centered_fbc"))
+        a1 = a.with_(data=a.data[0].contiguous())
+        b1 = b.with_(data=b.data[0].contiguous())
+        t1 = time.perf_counter()
+        cpu = Session.from_wire(sess.ctx.params, sess.rk, sess.gk,
+                                device="cpu", centered_fbc=s.ev.centered_fbc)
+        for name, op, batched in (("fused", fused_op, fused),
+                                  ("standalone", steps_op, steps)):
+            got = op(s, a1, b1).data.cpu()
+            ref = op(cpu, a1.to("cpu"), b1.to("cpu")).data
+            if not torch.equal(got, ref) or not torch.equal(
+                    got, batched.data[0].cpu()):
+                raise AssertionError(f"hi {mode} {name}: B=1 output differs "
+                                     "from the CPU plain path or row 0")
+        cpu_seconds = time.perf_counter() - t1
+        times = {name: calls_ms(lambda: op(s, a, b), HI_ITERS)
+                 for name, op in (("fused", fused_op),
+                                  ("standalone", steps_op))}
+        log("hi_path", mode=mode, preset="ckks_hi14", batch=B, max_err=err,
+            fused_vs_standalone=diff, cpu_plain_equal=True,
+            cpu_b1_seconds=round(cpu_seconds, 3), launches_fused=lf,
+            launches_standalone=ls, ms_per_call=times,
+            ops_per_s={k: B * 1000.0 / v for k, v in times.items()},
+            card=smi)
+        out[f"hi_{mode}_fused"] = lf
+        out[f"hi_{mode}_standalone"] = ls
+    return out
+
+
+def phase_wire(sess, a, b, bfv_sess, bfv_ct) -> None:
+    """Every blob kind of core/serial round-trips on the card to equal
+    tensors; a from_wire session on the loaded keys gives phase 6's
+    multiply_relin_rescale bits (bench_n14)."""
+    t0 = time.perf_counter()
+    ctx = sess.ctx
+    same = lambda u, v: u.device == v.device and torch.equal(u, v)
+    params = serial.load_params(serial.dump_params(ctx.params))
+    pt = sess.encode(np.linspace(-1, 1, 16))
+    seed = b"\x37" * 32
+    sym = sess.encryptor.encrypt_symmetric(pt, seed=seed)
+    kg = KeyGenerator(Context(preset("test_dnum")), seed=seed)
+    kg.create_public_key()
+    rk2 = kg.create_relin_keys(count=2)
+    rk = serial.load_relin_keys(serial.dump_relin_keys(sess.rk), ctx)
+    gk = serial.load_galois_keys(serial.dump_galois_keys(sess.gk), ctx)
+    rk2b = serial.load_relin_keys(serial.dump_relin_keys(rk2), kg.ctx)
+    pt2 = serial.load_plaintext(serial.dump_plaintext(pt))
+    kinds = {
+        "params": params == ctx.params,
+        "ckks_ciphertext": same(serial.load_ciphertext(
+            serial.dump_ciphertext(a), ctx).data, a.data),
+        "bfv_ciphertext": same(serial.load_ciphertext(
+            serial.dump_ciphertext(bfv_ct), bfv_sess.ctx).data, bfv_ct.data),
+        "seeded_ciphertext": same(serial.load_ciphertext(
+            serial.dump_ciphertext(sym, seed=seed), ctx).data, sym.data),
+        "plaintext": same(pt2.data, pt.data) and same(pt2.shoup, pt.shoup),
+        "public_key": same(serial.load_public_key(serial.dump_public_key(
+            sess.encryptor.pk)).data, sess.encryptor.pk.data),
+        "relin_keys": same(rk.key.data, sess.rk.key.data)
+        and same(rk.key.shoup, sess.rk.key.shoup),
+        "relin_keys_count_2": len(rk2b.more) == 1 and all(
+            same(u.data, v.data) and same(u.shoup, v.shoup)
+            for u, v in zip((rk2b.key, *rk2b.more), (rk2.key, *rk2.more))),
+        "galois_keys": gk.elts == sess.gk.elts and all(
+            same(u.data, v.data) and same(u.shoup, v.shoup)
+            for u, v in zip(gk.keys, sess.gk.keys)),
+    }
+    wire = Session.from_wire(params, rk, gk)
+    kinds["from_wire_multiply_relin_rescale"] = same(
+        wire.ev.multiply_relin_rescale(a, b, wire.rk).data,
+        sess.ev.multiply_relin_rescale(a, b, sess.rk).data)
+    bad = [k for k, ok in kinds.items() if not ok]
+    if bad:
+        raise AssertionError(f"wire: round trips differ: {bad}")
+    log("wire", preset="bench_n14", kinds=sorted(kinds),
+        seconds=round(time.perf_counter() - t0, 3), exact=True)
+
+
 def phase_probe_kernels(rng) -> dict:
     """P1–P4 against their plain versions at each probe's own shapes."""
     out = {}
@@ -884,18 +1236,26 @@ PARTS = tuple("plane_parts_" + v for v in kernel_parts.VARIANTS)
 KERNELS = [
     ("ntt", "hetpu_torch/csrc/ntt.cu", "hetpu/core/mxu_ntt.py:710",
      ("ntt_inv", "ntt_fwd", "ntt_inv_rescale", "ntt_inv_moddown",
-      "ntt_fwd_288"), "default"),
+      "ntt_fwd_288", "ntt_inv_bfv_q2", "ntt_inv_bfv_q3", "ntt_fwd_bfv_b2",
+      "ntt_inv_bfv_b3", "ntt_inv_bfv_t", "ntt_inv_pair", "ntt_inv_hi_tail"),
+     "default"),
     ("ntt_fwd_lifted", "hetpu_torch/csrc/fused_ntt.cu",
-     "hetpu/core/mxu_ntt.py:816", ("ntt_fwd_lifted",), "default"),
+     "hetpu/core/mxu_ntt.py:816", ("ntt_fwd_lifted", "ntt_fwd_lifted_bfv"),
+     "default"),
     ("ntt_fwd_fbc", "hetpu_torch/csrc/fused_ntt.cu",
      "hetpu/core/mxu_ntt.py:816",
-     ("ntt_fwd_fbc", "ntt_fwd_fbc_moddown", "ntt_fwd_fbc_ties"), "default"),
+     ("ntt_fwd_fbc", "ntt_fwd_fbc_moddown", "ntt_fwd_fbc_ties",
+      "ntt_fwd_fbc_bfv_moddown", "ntt_fwd_fbc_pair", "ntt_fwd_fbc_hi_tail"),
+     "default"),
     ("inner_product", "hetpu_torch/csrc/ip_kernel.cu",
-     "hetpu/core/ip_kernel.py:75", ("inner_product",), "default"),
+     "hetpu/core/ip_kernel.py:75", ("inner_product", "inner_product_bfv"),
+     "default"),
     ("ntt_fwd_centered", "hetpu_torch/csrc/fused_ntt.cu",
      "hetpu/core/mxu_fbc.py:214",
      ("ntt_fwd_centered_tail", "ntt_fwd_centered_moddown",
-      "ntt_fwd_centered_lift", "ntt_fwd_centered_ties"), "centered"),
+      "ntt_fwd_centered_lift", "ntt_fwd_centered_ties",
+      "ntt_fwd_centered_bfv_lift", "ntt_fwd_centered_bfv_moddown",
+      "ntt_fwd_centered_pair", "ntt_fwd_centered_hi_tail"), "centered"),
     # the standalone conversion: no path launches it any more (0 on the
     # centered run); its function is on the path inside ntt_fwd_centered
     ("centered_fbc", "hetpu_torch/csrc/centered_fbc.cu",
@@ -934,10 +1294,14 @@ def main() -> int:
     isess, cent, ct, diags, act, default, centered = phase_infer(rng)
     phase_infer_time(isess, cent, ct, diags, act, a, b, smi)
     phase_profile(isess, cent, ct, diags, act, smi)
+    bfv_sess, bfv_ct, bfv_launches = phase_bfv(rng, smi)
+    hi_launches = phase_hi(rng, smi)
+    phase_wire(sess, a, b, bfv_sess, bfv_ct)
     timings.update(phase_probe_kernels(rng))
     launches = {"default": default["launches"],
                 "centered": centered["launches"],
-                "probes": phase_probes(sess, smi)}
+                "probes": phase_probes(sess, smi),
+                **bfv_launches, **hi_launches}
     phase_host_cost(rng, smi)
     rows = []
     for kname, src, replaces, cases, path in KERNELS:
@@ -945,6 +1309,8 @@ def main() -> int:
         rows.append({"name": kname, "route": "cuda", "source": src,
                      "replaces": replaces,
                      "launches": launches[path][kname],
+                     "launches_by_path": {p: c[kname]
+                                          for p, c in launches.items()},
                      "max_abs_err": max(timings[c]["max_abs_err"]
                                         for c in cases),
                      "ms": r["ms"], "graph_ms": r["graph_ms"],

@@ -162,6 +162,32 @@ class Context:
         return self._cached(("mdr", level),
                             lambda: self._moddown_rescale_plan(level))
 
+    def group_rescale_plan(self, level: int) -> ModDownPlan:
+        """Paired-prime rescale: divide-and-round by q_{ℓ-1}·q_ℓ (the
+        rescale_group=2 high-precision mode), the key-switch mod-down's
+        centered-FBC divide with the dropped pair as its sources."""
+        return self._cached(("grs", level),
+                            lambda: self._group_rescale_plan(level))
+
+    def _group_rescale_plan(self, level: int) -> ModDownPlan:
+        g = self.params.rescale_group
+        if level - g + 1 < self.params.num_anchor:
+            raise ValueError("cannot rescale into the anchor primes")
+        src = list(self.params.moduli[level - g + 1: level + 1])
+        dst = list(self.params.moduli[: level - g + 1])
+        P = 1
+        for p in src:
+            P *= p
+        p_inv = _col([nt.modinv(P % q, q) for q in dst])
+        return ModDownPlan(
+            src_tables=self.tables_full.slice(
+                np.arange(level - g + 1, level + 1)),
+            dst_tables=self.tables_full.slice(np.arange(level - g + 1)),
+            fbc=rns.make_fbc(src, dst, self.device),
+            p_inv=self._t(p_inv),
+            p_inv_shoup=self._t(shoup_precompute(p_inv, _col(dst))),
+        )
+
     def _keyswitch_plan(self, level: int) -> KeySwitchPlan:
         """Generalized hybrid key-switch constants at level ℓ."""
         alpha = self.num_special
@@ -320,6 +346,46 @@ class Context:
             acc = (acc + residues[i].astype(object) * coef) % Q
         return np.where(acc > Q // 2, acc - Q, acc)
 
+    def _lift_k(self, residues: np.ndarray, primes, k: int):
+        """Centered CRT lift over the first k limbs (object ints).
+        Returns (out, Qk)."""
+        Qk = 1
+        for q in primes[:k]:
+            Qk *= q
+        acc = np.zeros(residues.shape[-1], dtype=object)
+        for i in range(k):
+            q = primes[i]
+            qhat = Qk // q
+            coef = qhat * nt.modinv(qhat % q, q) % Qk
+            acc = (acc + residues[i].astype(object) * coef) % Qk
+        return np.where(acc > Qk // 2, acc - Qk, acc), Qk
+
+    def _lift_consistent(self, out: np.ndarray, residues: np.ndarray,
+                         primes, k: int, spares: int) -> bool:
+        """True iff the k-limb lift reproduces the next ``spares`` limbs'
+        residues (per-spare false-accept ~2^-31; two spares give a ≥2^60
+        guard band)."""
+        for spare in range(k, min(k + spares, len(primes))):
+            qc = int(primes[spare])
+            if not np.array_equal((out % qc).astype(np.int64),
+                                  residues[spare].astype(np.int64)):
+                return False
+        return True
+
+    def crt_lift_auto(self, residues: np.ndarray, level: int) -> np.ndarray:
+        """Centered lift of values of UNKNOWN (typically small) magnitude:
+        escalates the limb count geometrically, validating each attempt
+        against two spare limbs, falling back to the exact full lift (the
+        BFV noise-budget probe, where the noise is usually ≪ Q)."""
+        primes = self.params.moduli[: level + 1]
+        k = 2
+        while k + 2 <= len(primes):
+            out, _ = self._lift_k(residues, primes, k)
+            if self._lift_consistent(out, residues, primes, k, 2):
+                return out
+            k *= 2
+        return self.crt_lift(residues, level)
+
     def crt_lift_small(self, residues: np.ndarray, level: int,
                        bound_bits: int) -> np.ndarray:
         """Centered lift of values KNOWN to be < 2^bound_bits in magnitude
@@ -331,22 +397,11 @@ class Context:
         while k < len(primes) and prod.bit_length() <= bound_bits + 2:
             prod *= primes[k]
             k += 1
-        if k >= len(primes):
-            return self.crt_lift(residues, level)
-        Qk = prod
-        acc = np.zeros(residues.shape[-1], dtype=object)
-        for i in range(k):
-            q = primes[i]
-            qhat = Qk // q
-            coef = qhat * nt.modinv(qhat % q, q) % Qk
-            acc = (acc + residues[i].astype(object) * coef) % Qk
-        out = np.where(acc > Qk // 2, acc - Qk, acc)
-        for spare in range(k, min(k + 2, len(primes))):
-            qc = int(primes[spare])
-            if not np.array_equal((out % qc).astype(np.int64),
-                                  residues[spare].astype(np.int64)):
-                return self.crt_lift(residues, level)  # bound was wrong
-        return out
+        if k < len(primes):
+            out, _ = self._lift_k(residues, primes, k)
+            if self._lift_consistent(out, residues, primes, k, 2):
+                return out
+        return self.crt_lift(residues, level)
 
     def to_rns(self, coeffs: np.ndarray, level: int) -> np.ndarray:
         """Int array (possibly negative; int64 or object) → [ℓ+1, N] uint32."""

@@ -1,5 +1,5 @@
-"""Measuring utilities: counterparts of ``hetpu/utils/{metrics,timer,
-profiling,debug}.py`` on PyTorch (``keycache.py`` waits for ``serial``)."""
+"""Utilities: counterparts of ``hetpu/utils/{metrics,timer,profiling,
+debug,keycache}.py`` on PyTorch."""
 
 from __future__ import annotations
 

@@ -14,7 +14,10 @@ import numpy as np
 import pytest
 import torch
 
-from hetpu_torch.core import centered_fbc, cuda_lib, fused_ntt, ip_kernel
+from hetpu_torch.bfv import BfvSession
+from hetpu_torch.core import (centered_fbc, cuda_lib, fused_ntt, ip_kernel,
+                              serial)
+from hetpu_torch.core.bfv import BfvScheme
 from hetpu_torch.core.context import Context
 from hetpu_torch.core.evaluator import Evaluator
 from hetpu_torch.core.modular import from_u32, shoup_companion, to_u32
@@ -462,3 +465,194 @@ def test_graph_replay_counts_its_launches(dev):
         g.replay()
     assert cuda_lib.launches["muladd_u32"] == before["muladd_u32"] + 4
     assert probes.cold_ms(fn, reps=2) > 0
+
+
+# ----------------------------------------------------------------------
+# BFV (bfv_batch), the paired-prime rescale (ckks_hi14) and the wire
+# format on the card
+# ----------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def bfv14(dev):
+    ctx = Context(preset("bfv_batch"), dev)
+    return ctx, BfvScheme(ctx)
+
+
+@pytest.fixture(scope="module")
+def hi14(dev):
+    return Context(preset("ckks_hi14"), dev)
+
+
+@pytest.mark.parametrize("kind", ["q2", "q3", "b2", "b3", "t"])
+def test_bfv_ntt_shapes(dev, bfv14, kind):
+    """K1 at the BFV path's B=8 shapes: [8,2,7,N] and [8,3,7,N] over Q,
+    [8,2,10,N] and [8,3,10,N] over the auxiliary basis, [1,N] over a t
+    factor."""
+    ctx, scheme = bfv14
+    n = ctx.params.poly_degree
+    lvl = scheme._lvl(6)
+    t = {"q": ctx.tables(6), "b": lvl["tables_B"],
+         "t": scheme.tables_t[scheme.t_factors[0]]}[kind[0]]
+    assert len(lvl["B_primes"]) == 10
+    shape = (1, n) if kind == "t" else (8, int(kind[1]), len(t.primes), n)
+    x = _res(np.random.default_rng(len(kind)), shape, t.primes, dev)
+    assert torch.equal(ntt_inv(x, t, strip_mont=True),
+                       ntt_inv_plain(x, t, strip_mont=True))
+    assert torch.equal(ntt_fwd(x, t, to_mont=True),
+                       ntt_fwd_plain(x, t, to_mont=True))
+
+
+def test_bfv_keyswitch_shapes(dev, bfv14):
+    """K2 and the K6 lift [8,7,N]→[8,29,N] (α = 2, a short last digit),
+    K3 and K6 mod-down [8,2,2,N]→[8,2,7,N], K4 at J=4, R=9."""
+    ctx, _ = bfv14
+    n = ctx.params.poly_degree
+    ks = ctx.keyswitch_plan(6)
+    rng = np.random.default_rng(61)
+    y = _res(rng, (8, 7, n), ctx.params.moduli, dev)
+    lift = (ks.lift_w, ks.lift_ws, ks.lift_dig, ks.foreign_cat_tables)
+    got = fused_ntt.ntt_fwd_lifted(y, *lift)
+    assert got.shape == (8, 29, n)
+    assert torch.equal(got, fused_ntt.ntt_fwd_lifted_plain(y, *lift))
+    clift = (ks.lift_w, ks.lift_ws, ks.lift_dig, ks.q[:7],
+             ks.foreign_cat_tables)
+    assert torch.equal(fused_ntt.ntt_fwd_centered_lift(y, *clift),
+                       fused_ntt.ntt_fwd_centered_lift_plain(y, *clift))
+    md = ks.moddown
+    u = _res(rng, (8, 2, 2, n), md.src_tables.primes, dev)
+    assert torch.equal(fused_ntt.ntt_fwd_fbc(u, md.fbc, md.dst_tables),
+                       fused_ntt.ntt_fwd_fbc_plain(u, md.fbc, md.dst_tables))
+    plan = ctx.centered_fbc_plan(md.fbc)
+    assert torch.equal(fused_ntt.ntt_fwd_centered_fbc(u, plan, md.dst_tables),
+                       fused_ntt.ntt_fwd_centered_fbc_plain(u, plan,
+                                                            md.dst_tables))
+    primes = ks.basis_tables.primes
+    assert (ks.num_digits, len(primes)) == (4, 9)
+    ext = _res(rng, (8, 4, 9, n), primes, dev)
+    k = _res(rng, (4, 2, 9, n), primes, dev)
+    k_sh = shoup_companion(k, ks.q)
+    assert torch.equal(ip_kernel.inner_product(ext, k, k_sh, ks.q),
+                       ip_kernel.inner_product_plain(ext, k, k_sh, ks.q))
+
+
+@pytest.mark.parametrize("kind", ["pair", "tail"])
+def test_hi14_shapes(dev, hi14, kind):
+    """The paired-prime path at ckks_hi14's top level: K1 INTT of the pair
+    [8,2,2,N] or of the fused tail [8,2,5,N], then K3 and K6 onto the 10
+    remaining primes."""
+    plan = (hi14.group_rescale_plan(11) if kind == "pair"
+            else hi14.moddown_rescale_plan(11))
+    src = plan.src_tables.primes
+    assert len(src) == (2 if kind == "pair" else 5)
+    u = _res(np.random.default_rng(len(kind)), (8, 2, len(src), 16384), src,
+             dev)
+    kw = dict(strip_mont=True, extra=plan.fbc.inv_punit)
+    assert torch.equal(ntt_inv(u, plan.src_tables, **kw),
+                       ntt_inv_plain(u, plan.src_tables, **kw))
+    dt = plan.dst_tables
+    assert len(dt.primes) == 10
+    assert torch.equal(fused_ntt.ntt_fwd_fbc(u, plan.fbc, dt),
+                       fused_ntt.ntt_fwd_fbc_plain(u, plan.fbc, dt))
+    cplan = hi14.centered_fbc_plan(plan.fbc)
+    assert torch.equal(fused_ntt.ntt_fwd_centered_fbc(u, cplan, dt),
+                       fused_ntt.ntt_fwd_centered_fbc_plain(u, cplan, dt))
+
+
+def test_bfv_golden_on_the_card(dev):
+    z = np.load(GOLD / "golden_pins.npz")
+    bs = BfvSession.create("test_bfv_crt", seed=b"\x34" * 32,
+                           galois_steps=[1], device=dev)
+    proto = bs.encrypt(np.zeros(4, dtype=np.int64))
+    out = bs.multiply_relin(proto.with_(data=from_u32(z["bfv_a"], dev)),
+                            proto.with_(data=from_u32(z["bfv_b"], dev)))
+    np.testing.assert_array_equal(to_u32(out.data), z["bfv_out"])
+
+
+@pytest.mark.parametrize("centered", [False, True])
+def test_bfv_card_equals_cpu(dev, centered):
+    """test_bfv_crt on the card: multiply_relin, rotate_rows, mod_switch at
+    B=2 decrypt exactly and equal the CPU plain path of the same keys;
+    K1–K4 (or K1, K4, K6) launched."""
+    kw = dict(seed=b"\x0b" * 32, galois_steps=[1], centered_fbc=centered)
+    s = BfvSession.create("test_bfv_crt", device=dev, **kw)
+    cpu = BfvSession.create("test_bfv_crt", device="cpu", **kw)
+    t = s.ctx.params.plain_modulus
+    xs = np.random.default_rng(5).integers(0, t, (2, 2, s.slots),
+                                           dtype=np.uint64)
+    enc = lambda sess, v, i: sess.encrypt(v, seed=bytes([i]) * 32)
+    chain = lambda sess, a, b: sess.mod_switch(sess.rotate_rows(
+        sess.multiply_relin(a, b), 1))
+    a = [enc(s, v, i) for i, v in enumerate(xs[0])]
+    b = [enc(s, v, 9 + i) for i, v in enumerate(xs[1])]
+    st = lambda cs: cs[0].with_(data=torch.stack([c.data for c in cs]))
+    cuda_lib.reset_launches()
+    out = chain(s, st(a), st(b))
+    counts = dict(cuda_lib.launches)
+    on = ("ntt_fwd_centered",) if centered else ("ntt_fwd_lifted",
+                                                 "ntt_fwd_fbc")
+    assert all(counts[k] > 0 for k in ("ntt", "inner_product", *on)), counts
+    ref = chain(cpu, st(a).to("cpu"), st(b).to("cpu"))
+    assert torch.equal(out.data.cpu(), ref.data)
+    half = s.slots // 2
+    for i in range(2):
+        prod = [int(x) * int(y) % t for x, y in zip(xs[0, i], xs[1, i])]
+        want = prod[1:half] + prod[:1] + prod[half + 1:] + prod[half:half + 1]
+        got = s.decrypt(out.with_(data=out.data[i]))
+        assert [int(v) for v in got] == want
+    assert s.noise_budget(out.with_(data=out.data[0])) > 0
+
+
+@pytest.mark.parametrize("centered", [False, True])
+def test_group_rescale_card_equals_cpu(dev, centered):
+    """ckks_hi (rescale_group=2) on the card: the standalone pair rescale,
+    the fused multiply_relin_rescale and square_relin_rescale equal the
+    CPU plain path of the same keys; K3 (default) or K6 (centered)."""
+    kw = dict(seed=b"\x42" * 32, galois_steps=[1], centered_fbc=centered)
+    s = Session.create("ckks_hi", device=dev, **kw)
+    cpu = Session.from_wire(s.ctx.params, s.rk, s.gk, device="cpu",
+                            centered_fbc=centered)
+    x = np.random.default_rng(8).uniform(-1, 1, (2, s.slots))
+    a = s.encryptor.encrypt_symmetric(s.encode(x[0]), seed=b"\x01" * 32)
+    b = s.encryptor.encrypt_symmetric(s.encode(x[1]), seed=b"\x02" * 32)
+    ops = {"rescale": lambda z, a, b: z.ev.rescale(z.ev.relinearize(
+               z.ev.multiply(a, b), z.rk)),
+           "fused": lambda z, a, b: z.ev.multiply_relin_rescale(a, b, z.rk),
+           "square": lambda z, a, b: z.ev.square_relin_rescale(a, z.rk)}
+    for name, op in ops.items():
+        cuda_lib.reset_launches()
+        got = op(s, a, b)
+        counts = dict(cuda_lib.launches)
+        assert got.level == a.level - 2, name
+        assert (counts["ntt_fwd_centered"] > 0) == centered, (name, counts)
+        assert (counts["ntt_fwd_fbc"] > 0) != centered, (name, counts)
+        ref = op(cpu, a.to("cpu"), b.to("cpu"))
+        assert torch.equal(got.data.cpu(), ref.data), name
+    err = np.abs(s.decrypt(ops["fused"](s, a, b)).real - x[0] * x[1]).max()
+    assert err < 1e-9, err
+
+
+def test_serial_on_the_card(dev):
+    """Blobs load onto the card to the tensors they were dumped from."""
+    s = Session.create("test_dnum", seed=b"\x33" * 32, galois_steps=[1],
+                       device=dev)
+    ct = s.encrypt(0.5, seed=b"\x01" * 32)
+    sym = s.encryptor.encrypt_symmetric(s.encode(0.5), seed=b"\x02" * 32)
+    pt = s.encode(0.25)
+    got = serial.load_ciphertext(serial.dump_ciphertext(ct), s.ctx)
+    assert got.data.is_cuda and torch.equal(got.data, ct.data)
+    got = serial.load_ciphertext(serial.dump_ciphertext(sym, seed=b"\x02" * 32),
+                                 s.ctx)
+    assert torch.equal(got.data, sym.data)
+    got = serial.load_plaintext(serial.dump_plaintext(pt))
+    assert got.data.is_cuda and torch.equal(got.shoup, pt.shoup)
+    assert torch.equal(serial.load_public_key(serial.dump_public_key(
+        s.encryptor.pk)).data, s.encryptor.pk.data)
+    rk = serial.load_relin_keys(serial.dump_relin_keys(s.rk), s.ctx)
+    gk = serial.load_galois_keys(serial.dump_galois_keys(s.gk), s.ctx)
+    assert torch.equal(rk.key.shoup, s.rk.key.shoup)
+    assert all(torch.equal(u.data, v.data) for u, v in zip(gk.keys,
+                                                            s.gk.keys))
+    wire = Session.from_wire(serial.load_params(serial.dump_params(
+        s.ctx.params)), rk, gk, device=dev)
+    assert torch.equal(wire.ev.multiply_relin_rescale(ct, ct, wire.rk).data,
+                       s.ev.multiply_relin_rescale(ct, ct, s.rk).data)

@@ -24,11 +24,13 @@ import pytest
 import torch
 
 from hetpu_torch import convert
-from hetpu_torch.core import cuda_lib, fused_ntt, ip_kernel
+from hetpu_torch.bfv import BfvSession
+from hetpu_torch.core import cuda_lib, fused_ntt, ip_kernel, serial
 from hetpu_torch.core.context import Context
 from hetpu_torch.core.ntt import ntt_fwd, ntt_inv
 from hetpu_torch.core.params import preset
 from hetpu_torch.session import Session
+from hetpu_torch.utils.keycache import cached_session
 
 torch.set_num_threads(1)
 
@@ -42,8 +44,11 @@ def test_import_pulls_no_jax_and_builds_nothing(tmp_path):
         import hetpu_torch.core.centered_fbc, hetpu_torch.math
         import hetpu_torch.core.mxu_digits, hetpu_torch.probes.__main__
         import hetpu_torch.utils.debug, hetpu_torch.utils.profiling
-        import hetpu_torch.utils.timer
+        import hetpu_torch.utils.timer, hetpu_torch.utils.keycache
+        import hetpu_torch.core.twofloat, hetpu_torch.core.serial
         from hetpu_torch import probes
+        from hetpu_torch.bfv import BfvSession
+        from hetpu_torch.core import serial
         from hetpu_torch.core import cuda_lib
         from hetpu_torch.offload import pipeline
         from hetpu_torch.session import Session
@@ -54,6 +59,13 @@ def test_import_pulls_no_jax_and_builds_nothing(tmp_path):
         assert abs(s.decrypt(out).real - 0.25).max() < 1e-3
         out = s.drop_level(s.ev.rotate(ct, 1, s.gk))
         assert abs(s.decrypt(out).real - 0.5).max() < 1e-3
+        b = BfvSession.create("test_bfv_tiny", seed=b"\x01" * 32,
+                              galois_steps=[1], device="cpu")
+        c = serial.load_ciphertext(serial.dump_ciphertext(
+            b.encrypt([3, 4])), b.ctx)
+        prod = b.rotate_rows(b.mod_switch(b.multiply_relin(c, c)), 1)
+        d = b.decrypt(prod)
+        assert (d[0], d[511], d[1:511].any()) == (16, 9, False)
         probes.run("kernel_parts", device="cpu", rows=1, limbs=1, k=1)
         probes.run("int8_mxu", device="cpu", batch=1, k=1)
         bad = [m for m in sys.modules
@@ -127,12 +139,15 @@ def test_other_devices_raise():
 
 
 def test_entry_points_default_to_the_card():
-    """Session.create, Session.from_wire, Context and convert.* default to
-    device="cuda"; without a card they raise instead of falling back."""
+    """Session.create, Session.from_wire, BfvSession.create, Context,
+    convert.*, the serial loaders that take no context and cached_session
+    default to device="cuda"; without a card they raise instead of falling
+    back."""
     for fn in (Session.create, Session.from_wire, Context.__init__,
-               convert.secret_key, convert.public_key, convert.kswitch_key,
-               convert.relin_keys, convert.galois_keys, convert.ciphertext,
-               convert.plaintext):
+               BfvSession.create, convert.secret_key, convert.public_key,
+               convert.kswitch_key, convert.relin_keys, convert.galois_keys,
+               convert.ciphertext, convert.plaintext, serial.load_public_key,
+               serial.load_plaintext, cached_session):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     if torch.cuda.is_available():
         assert Context(preset("test_tiny")).device.type == "cuda"
@@ -143,6 +158,11 @@ def test_entry_points_default_to_the_card():
                  lambda: Session.create(params, seed=b"\x03" * 32,
                                         galois_steps=[]),
                  lambda: Session.from_wire(params),
+                 lambda: BfvSession.create("test_bfv_tiny", seed=b"\x03" * 32,
+                                           galois_steps=[]),
+                 lambda: serial.load_public_key(serial.dump_public_key(
+                     type("Pk", (), dict(data=torch.zeros(2, 1, 8,
+                                                          dtype=torch.int32))))),
                  lambda: convert.ciphertext(
                      type("Ct", (), dict(data=arr, level=0, scale=1.0)))):
         with pytest.raises((RuntimeError, AssertionError)):
