@@ -38,7 +38,12 @@ run exits non-zero without a result line):
      digit; K3 and K6 mod-down [8,2,2,N]→[8,2,7,N]; K4 at J=4, R=9) and of
      the paired-prime path at ckks_hi14's top level (K1 [8,2,2,N] and
      [8,2,5,N]; K3 and K6 pair [8,2,2,N]→[8,2,10,N] and fused tail
-     [8,2,5,N]→[8,2,10,N]);
+     [8,2,5,N]→[8,2,10,N]); then the application paths' top-level shapes:
+     ckks_deep_hi (N=2^15, 25 data primes, J=7, R=29) and ckks_deep
+     (N=2^15, 16 data primes, J=4, R=20) at one row, ckks_fft at 64 rows
+     (K1 decompose INTT, forward NTT over the data primes and over the key
+     basis, mod-down INTT; K2 and the K6 lift; K3 and K6 mod-down, fused
+     tail and, at g=2, pair; K4);
   5. goldens — Session "test_dnum" (seed 0x33) on the card:
      multiply_relin_rescale on golden_pins fused_a/fused_b = fused_out and
      rotate by 1 = fused_rot; golden_n14 rs_n14 through Evaluator.rescale;
@@ -76,7 +81,26 @@ run exits non-zero without a result line):
      (centered, no K2 or K3) launched, both ops timed;
  13. wire — every blob kind of core/serial round-trips on the card, and a
      from_wire session on the loaded keys gives phase 6's bits;
- 14. probes — the micro-benchmark kernels P1 copy_planes, P2 muladd_u32,
+ 14. least squares — least_squares_2d as hetpu/demos/matrix_operations.py
+     runs it (ckks_deep_hi, seed 0x77, galois steps 1, 2, 4, 5 points from
+     rng(0), inv_iters 6): a and b within 2^-10 of the closed form; wall
+     seconds, launches, and a profile of two fits (device busy share);
+ 15. matmul128 — scripts/bench_workloads.py's config 3: bench_n14 (seed
+     0x31, galois steps 1..127), BatchedMatrix diag×col 128×128 from
+     rng(3) in chunks of 8 columns, within 5e-3 of A@B; seconds for the
+     whole product, peak device memory, a profile of one chunk;
+ 16. bfft1024x64 — config 4: ckks_fft (seed 0x32), the in-slot FFT of 64
+     ciphertexts of 1024 points, rows 0, 32, 63 within 1e-2 of the
+     bit-reversed numpy.fft.fft; seconds of a first and a cached call;
+ 17. server — the port's Client against serve_once on the card in a
+     thread over runtime.native.pipe_pair (hetpu/demos/offload_demos.py's
+     rookie harness), the seven workloads at the demos' presets and inputs
+     (twice_max on tests/test_math.py's inputs: the demo's leave the |·|
+     Newton basin), each error within its stated bound, round-trip
+     seconds, launches and the transport that served; then at the --small
+     presets, the card server's reply frames equal the CPU server's byte
+     for byte on the same request frames;
+ 18. probes — the micro-benchmark kernels P1 copy_planes, P2 muladd_u32,
      P3 dot_i8 and P4 plane_parts against their plain versions at each
      probe's own shapes, exact (P3 on all four u8/s8 pairs at [128,256]@
      [256,128], then [512,512]@[512,128] and 288 planes; P4 in all six
@@ -96,9 +120,11 @@ Launch counts are zeroed just before each path and read just after it
 ``kernels`` line reports each kernel's launches on the inference path
 (K5, K6: on its centered run, where the standalone K5 reads 0; P1–P4: on
 the probes' run) and, under ``launches_by_path``, on every path (the BFV
-multiply_relin and chain, each paired-prime op in each mode), its eager
+multiply_relin and chain, each paired-prime op in each mode, least
+squares, matmul128, bfft1024x64 and each server workload), its eager
 ``ms`` and cold-L2 ``graph_ms``, the library call's eager ms, and under
-``cases`` the times of each shape it was compared at.  The last line is
+``cases`` the times of each shape it was compared at.  A ``total`` line
+gives the run's seconds.  The last line is
 {"ok": true, "device": {"platform": "gpu", ...}}.
 Imports only hetpu_torch, torch and numpy (no JAX, no hetpu).
 ``kernel_ab.py`` reuses its K1/K2/K3/K6 cases, host timing and profile
@@ -111,6 +137,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -132,9 +159,15 @@ from hetpu_torch.core.ntt import (build_tables, ntt_fwd, ntt_fwd_mont,
 from hetpu_torch.core.params import preset
 from hetpu_torch.core.rns import fbc_apply
 from hetpu_torch import probes
-from hetpu_torch.offload import pipeline
+from hetpu_torch.fft import bfft, bit_reverse_order
+from hetpu_torch.linalg import BatchedMatrix
+from hetpu_torch.models.least_squares import least_squares_2d
+from hetpu_torch.offload import pipeline, recv_request, send_reply
+from hetpu_torch.offload.client import Client
+from hetpu_torch.offload.server import handle, serve_once
 from hetpu_torch.probes import copy as copy_probe
 from hetpu_torch.probes import dot, kernel_parts, overhead2
+from hetpu_torch.runtime import native
 from hetpu_torch.session import Session
 
 GOLD = Path(__file__).resolve().parent / "tests" / "golden"
@@ -500,12 +533,12 @@ def centered_compare(name, u, plan, dt) -> dict:
                    imul=fbc_imuls(u, dt))
 
 
-def ip_compare(name, rng, ks) -> dict:
-    """K4 over the key basis of ``ks`` at B rows: ext [B, J, R, N]."""
+def ip_compare(name, rng, ks, rows: int = B) -> dict:
+    """K4 over the key basis of ``ks``: ext [rows, J, R, N]."""
     n = ks.basis_tables.n
     R = len(ks.basis_tables.primes)
     J = ks.num_digits
-    ext = residues(rng, (B, J, R, n), ks.basis_tables.primes)
+    ext = residues(rng, (rows, J, R, n), ks.basis_tables.primes)
     k = residues(rng, (J, 2, R, n), ks.basis_tables.primes)
     k_sh = shoup_companion(k, ks.q)
     return compare(name, lambda: ip_kernel.inner_product(ext, k, k_sh, ks.q),
@@ -566,6 +599,7 @@ def phase_kernels(rng) -> dict:
     out["ntt_fwd_centered_ties"] = centered_compare(
         "ntt_fwd_centered near-tie columns", y_tie, plan, dt)
     out.update(slice6_kernel_cases(rng))
+    out.update(app_kernel_cases(rng))
     for name, r in out.items():
         log("kernel_vs_plain", kernel=name, **r)
     return out
@@ -619,6 +653,61 @@ def slice6_kernel_cases(rng) -> dict:
             "ntt_fwd_centered " + tag, u, ctx.centered_fbc_plan(plan.fbc),
             plan.dst_tables)
     out["inner_product_bfv"] = ip_compare("inner_product bfv", rng, ks)
+    return out
+
+
+# the application paths' configurations: tag → (preset, rows a call)
+APP_SHAPES = {"dhi": ("ckks_deep_hi", 1), "deep": ("ckks_deep", 1),
+              "fft64": ("ckks_fft", 64)}
+
+
+def app_kernel_cases(rng) -> dict:
+    """K1–K4 and K6 at the top-level shapes of the application paths:
+    ckks_deep_hi (N=2^15, 25 data primes, 4 special, J=7, R=29, paired
+    rescale) at one row, the least-squares fit; ckks_deep (N=2^15, 16 data
+    primes, 4 special, J=4, R=20) at one row, the server's math workloads;
+    ckks_fft (N=2^14, 11 data primes, 3 special, J=4, R=14) at 64 rows, the
+    in-slot FFT of 64 ciphertexts.  K1: the decompose INTT and the forward
+    NTT over the data primes, the forward NTT over the key basis, the
+    mod-down INTT of the specials; K2 and the K6 lift; K3 and K6 for the
+    mod-down, the fused rescale tail and, at g=2, the pair rescale; K4."""
+    out = {}
+    for tag, (name, rows) in APP_SHAPES.items():
+        ctx = Context(preset(name))
+        lvl = ctx.num_data - 1
+        n = ctx.params.poly_degree
+        ks, tabs = ctx.keyswitch_plan(lvl), ctx.tables(lvl)
+        md, kb = ks.moddown, ks.basis_tables
+        x = residues(rng, (rows, lvl + 1, n), tabs.primes)
+        k1 = {"ntt_inv_" + tag: (x, tabs, dict(strip_mont=True,
+                                               extra=ks.dig_inv)),
+              "ntt_fwd_" + tag: (x, tabs, dict(to_mont=True)),
+              "ntt_fwd_%s_basis" % tag: (
+                  residues(rng, (rows, len(kb.primes), n), kb.primes), kb,
+                  dict(to_mont=True)),
+              "ntt_inv_%s_moddown" % tag: (
+                  residues(rng, (rows, 2, len(md.src_tables.primes), n),
+                           md.src_tables.primes), md.src_tables,
+                  dict(strip_mont=True, extra=md.fbc.inv_punit))}
+        for case, (y, t, kw) in k1.items():
+            out[case] = ntt_compare(f"{case} {name}", y, t, kw)
+        out["ntt_fwd_lifted_" + tag] = lift_compare(
+            f"ntt_fwd_lifted {name}", x, ks, lvl)
+        out["ntt_fwd_centered_%s_lift" % tag] = lift_compare(
+            f"ntt_fwd_centered lift {name}", x, ks, lvl, centered=True)
+        plans = {"moddown": md, "tail": ctx.moddown_rescale_plan(lvl)}
+        if ctx.params.rescale_group == 2:
+            plans["pair"] = ctx.group_rescale_plan(lvl)
+        for ptag, plan in plans.items():
+            src = plan.src_tables.primes
+            u = residues(rng, (rows, 2, len(src), n), src)
+            out[f"ntt_fwd_fbc_{tag}_{ptag}"] = fbc_compare(
+                f"ntt_fwd_fbc {ptag} {name}", u, plan.fbc, plan.dst_tables)
+            out[f"ntt_fwd_centered_{tag}_{ptag}"] = centered_compare(
+                f"ntt_fwd_centered {ptag} {name}", u,
+                ctx.centered_fbc_plan(plan.fbc), plan.dst_tables)
+        out["inner_product_" + tag] = ip_compare(f"inner_product {name}", rng,
+                                                 ks, rows)
     return out
 
 
@@ -815,14 +904,14 @@ KERNEL_OF = (("centered_fbc_kernel", "centered_fbc"),
              ("ntt_kernel", "ntt"))
 
 
-def profile_calls(fn, calls: int = PROFILE_ITERS) -> dict:
-    """torch.profiler over ``calls`` calls of ``fn`` after 3 warm-ups, per
-    call: wall µs (profiler on), device µs of this package's kernels
-    (``ours``, by KERNEL_OF) and of the plain torch kernels (``plain``, by
-    name), and the device kernels launched."""
+def profile_calls(fn, calls: int = PROFILE_ITERS, warmup: int = 3) -> dict:
+    """torch.profiler over ``calls`` calls of ``fn`` after ``warmup``
+    calls, per call: wall µs (profiler on), device µs of this package's
+    kernels (``ours``, by KERNEL_OF) and of the plain torch kernels
+    (``plain``, by name), and the device kernels launched."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1094,6 +1183,337 @@ def phase_wire(sess, a, b, bfv_sess, bfv_ct) -> None:
         seconds=round(time.perf_counter() - t0, 3), exact=True)
 
 
+# ----------------------------------------------------------------------
+# the application layer: least squares, matmul128, bfft1024×64, server
+# ----------------------------------------------------------------------
+
+LSQ_ERR = 2 ** -10             # hetpu/demos/matrix_operations.py:196-197
+MATMUL_D, MATMUL_CHUNK = 128, 8
+MATMUL_ERR = 5e-3              # hetpu recorded 1.89e-3 (BENCH_WORKLOADS.json)
+BFFT_N, BFFT_CTS = 1024, 64
+BFFT_ERR = 1e-2                # hetpu recorded 6.6e-3 (BENCH_WORKLOADS.json)
+
+
+def _busy(fn, calls: int) -> dict:
+    """Profile ``calls`` calls of ``fn`` after one warm-up: device busy
+    share, device µs and kernels a call, this package's kernels' µs."""
+    r = profile_calls(fn, calls, warmup=1)
+    return {"wall_us_per_call": r["wall_us"],
+            "device_us_per_call": r["device_us"],
+            "device_busy_share": r["device_us"] / r["wall_us"],
+            "device_kernels_per_call": r["kernels"],
+            "our_kernels_us": r["ours"], "plain_us": sum(r["plain"].values())}
+
+
+def phase_least_squares(smi: str) -> dict:
+    """The flagship fit as hetpu/demos/matrix_operations.py:168-197 runs
+    it: ckks_deep_hi (the demo's seed 0x77, galois steps 1, 2, 4), 5
+    points from rng(0), inv_iters 6; a and b within 2^-10 of the closed
+    form."""
+    t0 = time.perf_counter()
+    sess = Session.create("ckks_deep_hi", seed=b"\x77" * 32,
+                          galois_steps=[1, 2, 4])
+    rng = np.random.default_rng(0)
+    n = 5
+    x = rng.uniform(0.5, 2.0, n)
+    y = 0.7 * x + 0.3 + rng.normal(0, 0.02, n)
+    px, py = np.zeros((2, sess.slots))
+    px[:n], py[:n] = x, y
+    sx, sxx, sy, sxy = x.sum(), (x * x).sum(), y.sum(), (x * y).sum()
+    D = n * sxx - sx * sx
+    cx, cy = sess.encrypt(px), sess.encrypt(py)
+    setup = time.perf_counter() - t0
+    fit = lambda: least_squares_2d(sess, cx, cy, n, inv_guess=1.0 / D,
+                                   inv_iters=6)
+    t0 = time.perf_counter()
+    (ct_a, ct_b), launches = _counted(fit)
+    seconds = time.perf_counter() - t0
+    a, b = sess.decrypt(ct_a).real[0], sess.decrypt(ct_b).real[0]
+    ea, eb = (n * sxy - sx * sy) / D, (sxx * sy - sx * sxy) / D
+    err = max(abs(a - ea), abs(b - eb))
+    if not (np.isfinite([a, b]).all() and err < LSQ_ERR):
+        raise AssertionError(f"least squares: error {err} (bound {LSQ_ERR})")
+    _need(launches, ("ntt", "ntt_fwd_lifted", "ntt_fwd_fbc",
+                     "inner_product"), "least squares",
+          absent=("ntt_fwd_centered", "centered_fbc"))
+    log("least_squares", preset="ckks_deep_hi", points=n, inv_iters=6,
+        a=a, b=b, expected=[ea, eb], max_err=err, bound=LSQ_ERR,
+        levels_left=ct_a.level, setup_seconds=round(setup, 3),
+        seconds=seconds, launches=launches, profile=_busy(fit, 2), card=smi)
+    return launches
+
+
+def phase_matmul128(smi: str) -> dict:
+    """scripts/bench_workloads.py's config 3: bench_n14 (seed 0x31, galois
+    steps 1..127), a 128×128 diag-layout A times a col-layout B from rng(3)
+    as BatchedMatrix diag×col in chunks of 8 columns; within 5e-3 of A@B."""
+    d, chunk = MATMUL_D, MATMUL_CHUNK
+    t0 = time.perf_counter()
+    sess = Session.create("bench_n14", seed=b"\x31" * 32,
+                          galois_steps=list(range(1, d)))
+    rng = np.random.default_rng(3)
+    A = rng.uniform(-1, 1, (d, d))
+    Bm = rng.uniform(-1, 1, (d, d))
+    ma = BatchedMatrix.encrypt(sess, A, layout="diag")
+    mb = BatchedMatrix.encrypt(sess, Bm, layout="col")
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+
+    def chunk_fn(j):
+        mbc = BatchedMatrix(sess, mb.ct.with_(data=mb.ct.data[j: j + chunk]),
+                            rows=d, cols=chunk, layout="col")
+        return ma.matmul(mbc).ct
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    outs, launches = _counted(lambda: [chunk_fn(j)
+                                       for j in range(0, d, chunk)])
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    mc = BatchedMatrix(sess, outs[0].with_(data=torch.cat(
+        [o.data for o in outs])), rows=d, cols=d, layout="col")
+    got = mc.decrypt().real
+    err = float(np.abs(got - A @ Bm).max())
+    if not (np.isfinite(got).all() and err < MATMUL_ERR):
+        raise AssertionError(f"matmul128: error {err} (bound {MATMUL_ERR})")
+    _need(launches, ("ntt", "ntt_fwd_lifted", "ntt_fwd_fbc",
+                     "inner_product"), "matmul128",
+          absent=("ntt_fwd_centered", "centered_fbc"))
+    log("matmul128", preset="bench_n14", d=d, chunk=chunk, max_err=err,
+        bound=MATMUL_ERR, setup_seconds=round(setup, 3), seconds=seconds,
+        peak_device_bytes=peak, launches=launches,
+        profile_chunk=_busy(lambda: chunk_fn(0), 2), card=smi)
+    return launches
+
+
+def phase_bfft(smi: str) -> dict:
+    """scripts/bench_workloads.py's config 4: ckks_fft (seed 0x32, steps
+    ±512..±1), the in-slot FFT of 64 ciphertexts of 1024 points each
+    (rng(3), 1/n-normalised, tiled over the slots); rows 0, 32 and 63
+    within 1e-2 of the bit-reversed numpy.fft.fft.  Timed twice: the first
+    call encodes the stage masks, the second finds them cached."""
+    n, nct = BFFT_N, BFFT_CTS
+    t0 = time.perf_counter()
+    steps = sorted({s for h in [n >> (i + 1) for i in range(n.bit_length()
+                                                            - 1)]
+                    for s in (h, -h)})
+    fs = Session.create("ckks_fft", seed=b"\x32" * 32, galois_steps=steps)
+    rng = np.random.default_rng(3)
+    sig = (rng.uniform(-1, 1, (nct, n))
+           + 1j * rng.uniform(-1, 1, (nct, n))) / n
+    tile = fs.slots // n
+    ct = stack([fs.encrypt(np.tile(sig[i], tile)) for i in range(nct)])
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fout, launches = _counted(lambda: bfft(fs, ct, n))
+    first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _counted(lambda: bfft(fs, ct, n))
+    second = time.perf_counter() - t0
+    errs = []
+    for i in (0, nct // 2, nct - 1):
+        got = fs.decrypt(fout.with_(data=fout.data[i]))[:n]
+        errs.append(float(np.abs(got - bit_reverse_order(
+            np.fft.fft(sig[i]))).max()))
+    err = max(errs)
+    if not (fout.data.shape[0] == nct and err < BFFT_ERR):
+        raise AssertionError(f"bfft: error {err} (bound {BFFT_ERR})")
+    _need(launches, ("ntt", "ntt_fwd_lifted", "ntt_fwd_fbc",
+                     "inner_product"), "bfft",
+          absent=("ntt_fwd_centered", "centered_fbc"))
+    log("bfft", preset="ckks_fft", n=n, cts=nct, max_err=err, bound=BFFT_ERR,
+        setup_seconds=round(setup, 3), seconds_first=first,
+        seconds_cached=second, launches=launches, card=smi)
+    return launches
+
+
+class Wire:
+    """A transport that hands out the given frames in order and keeps the
+    frames sent: a recorded request, served again."""
+
+    def __init__(self, frames=()):
+        self.sent = []
+        self._frames = list(frames)
+
+    def send(self, payload: bytes) -> None:
+        self.sent.append(bytes(payload))
+
+    def recv(self) -> bytes:
+        return self._frames.pop(0)
+
+
+class Tap:
+    """Wraps a transport and keeps every frame it receives and sends."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.received, self.sent = [], []
+
+    def send(self, payload: bytes) -> None:
+        self.sent.append(bytes(payload))
+        self.inner.send(payload)
+
+    def recv(self) -> bytes:
+        frame = self.inner.recv()
+        self.received.append(frame)
+        return frame
+
+
+def demo_workload(name: str, slots: int, small: bool):
+    """hetpu/demos/offload_demos.py's inputs for one client workload (a
+    fresh rng(0) each, :21-70): (client method arguments, check of the
+    decrypted result → (error, bound, bound's source))."""
+    rng = np.random.default_rng(0)
+    if name == "simple":
+        x1, x2 = rng.uniform(-1, 1, slots), rng.uniform(-1, 1, slots)
+        return (x1, x2), lambda got: (
+            float(np.abs(got.real - x1 * x2).max()), 1e-3,
+            "tests/test_offload.py:93 atol")
+    if name == "batch_matmul":
+        a = rng.uniform(-1, 1, (5, 5, slots))
+        b = rng.uniform(-1, 1, (5, 5, slots))
+        want = np.einsum("ikb,kjb->ijb", a, b)
+        return (a, b), lambda got: (
+            float(np.abs(got.real[:, :, :slots] - want).max()), 1e-2,
+            "tests/test_offload.py:103 atol")
+    if name == "inv":
+        x = rng.uniform(0.5, 1.5, slots)
+        return (x, 0.8, 5), lambda got: (
+            float(np.abs(got.real * x - 1).max()), 5e-3,
+            "tests/test_offload.py:111 rtol")
+    if name == "inv_sqrt_twice":
+        x = rng.uniform(0.4, 0.7, slots)
+        want = 1 / np.sqrt(2 * x)
+        return (x, 1.0, 4), lambda got: (
+            float(np.abs(got.real / want - 1).max()), 5e-3,
+            "tests/test_math.py:35 rtol, the same inputs, guess and "
+            "iterations")
+    if name == "abs":
+        x = rng.uniform(0.5, 1.0, slots) * rng.choice([-1, 1], slots)
+        return (x, 1.0, 4), lambda got: (
+            float(np.abs(got.real / np.abs(x) - 1).max()), 1e-2,
+            "tests/test_math.py:49 rtol, the same inputs, guess and "
+            "iterations")
+    if name == "twice_max":
+        # the demo draws x1, x2 from U(-1, 1): |x1 - x2| then leaves the
+        # |·| Newton basin |x1 - x2| < sqrt(1.5)/guess (he_math.h:9-15) in
+        # about one slot in eight, where the iteration grows to ~1e19; the
+        # float64 decode of such coefficients loses every slot's precision,
+        # so no bound can hold.  tests/test_math.py:56-61's draws (rng(0)
+        # here) stay inside the basin, with the demo's guess and iterations
+        base = rng.uniform(-0.5, 0.5, slots)
+        diff = rng.uniform(0.6, 1.0, slots) * rng.choice([-1, 1], slots)
+        x1, x2 = base + diff / 2, base - diff / 2
+        want = 2 * np.maximum(x1, x2)
+        return (x1, x2, 1.0, 4), lambda got: (
+            float((np.abs(got.real - want) / (1 + np.abs(want))).max()),
+            2e-2, "tests/test_math.py:66 rtol = atol, on its inputs (the "
+            "demo's leave the Newton basin)")
+    n = 8 if small else 32
+    sig = rng.uniform(-1, 1, n) + 1j * rng.uniform(-1, 1, n)
+    return (sig,), lambda got: (
+        float(np.abs(got - np.fft.fft(sig)).max()), 1e-3,
+        "tests/test_fft.py:46 atol")
+
+
+SERVER_WORKLOADS = ("simple", "batch_matmul", "inv", "inv_sqrt_twice", "abs",
+                    "twice_max", "fft")
+
+
+def server_preset(name: str, small: bool) -> str:
+    """hetpu/demos/offload_demos.py:15-20 (``_params_for``)."""
+    if name in ("inv", "inv_sqrt_twice", "abs", "twice_max"):
+        return "test_deep" if small else "ckks_deep"
+    if name == "fft":
+        return "test_deep" if small else "ckks_fft"
+    return "test_tiny" if small else "ckks_small"
+
+
+def _rookie(client, name, args):
+    """One round trip as hetpu/demos/offload_demos.py:87-100 runs it: the
+    port's server on the card in a thread, the client over an in-process
+    socket pair.  Returns (decrypted result, transport kind, the server's
+    transport tapped: the request and reply frames)."""
+    ta, tb = native.pipe_pair()
+    tap = Tap(tb)
+    err = []
+
+    def srv():
+        try:
+            serve_once(tap, device="cuda")
+        except Exception as e:          # re-raised below, after the join
+            err.append(e)
+            tb.close()                  # unblock the client's recv
+
+    th = threading.Thread(target=srv)
+    th.start()
+    try:
+        got = getattr(client, name)(ta, *args)
+    finally:
+        th.join(timeout=600)
+        ta.close()
+        tb.close()
+    if th.is_alive():
+        raise AssertionError(f"server {name}: the server did not finish")
+    if err:
+        raise err[0]
+    return got, ta.kind, tap
+
+
+def phase_server(smi: str) -> dict:
+    """The port's Client against the port's serve_once on the card, all
+    seven workloads at the demos' full-size presets and inputs, each error
+    within its bound; then at the --small presets, the card server's reply
+    frames equal the CPU server's on the same request frames."""
+    clients, out = {}, {}
+    for name in SERVER_WORKLOADS:
+        pname = server_preset(name, False)
+        t0 = time.perf_counter()
+        if pname not in clients:
+            clients[pname] = Client(pname, galois_steps=[1])
+        client = clients[pname]
+        setup = time.perf_counter() - t0
+        args, check = demo_workload(name, client.sess.slots, False)
+        t0 = time.perf_counter()
+        (got, kind, _), launches = _counted(lambda: _rookie(client, name,
+                                                            args))
+        seconds = time.perf_counter() - t0
+        err, bound, why = check(got)
+        if not (np.isfinite(err) and err < bound):
+            raise AssertionError(f"server {name}: error {err} (bound {bound},"
+                                 f" {why})")
+        _need(launches, ("ntt", "inner_product") if name != "fft"
+              else ("ntt",), f"server {name}")
+        log("server", workload=name, preset=pname, transport=kind,
+            max_err=err, bound=bound, bound_source=why,
+            client_setup_seconds=round(setup, 3), round_trip_seconds=seconds,
+            launches=launches, card=smi)
+        out["server_" + name] = launches
+
+    # the card's replies equal the CPU's, byte for byte (--small presets):
+    # the request frames the card's server received, served on the CPU
+    t0 = time.perf_counter()
+    small = {}
+    for name in SERVER_WORKLOADS:
+        pname = server_preset(name, True)
+        if pname not in small:
+            small[pname] = Client(pname, galois_steps=[1])
+        client = small[pname]
+        args, _ = demo_workload(name, client.sess.slots, True)
+        _, _, tap = _rookie(client, name, args)
+        header, sess, cts = recv_request(Wire(tap.received), device="cpu")
+        cpu = Wire()
+        send_reply(cpu, handle(header, sess, cts))
+        if tap.sent != cpu.sent:
+            raise AssertionError(f"server {name}: card reply frames differ "
+                                 "from the CPU's")
+    log("server_small_bytes", workloads=list(SERVER_WORKLOADS),
+        presets=sorted(small), equal=True,
+        seconds=round(time.perf_counter() - t0, 3))
+    return out
+
+
 def phase_probe_kernels(rng) -> dict:
     """P1–P4 against their plain versions at each probe's own shapes."""
     out = {}
@@ -1233,29 +1653,37 @@ def phase_host_cost(rng, smi: str) -> None:
 # name, source, replaced TPU kernel, timing cases (first = the row's
 # times; the others are in the kernel_vs_plain lines), path of the launches
 PARTS = tuple("plane_parts_" + v for v in kernel_parts.VARIANTS)
+APP_TAGS = tuple(APP_SHAPES)
+APP_CONV = tuple(f"{t}_{p}" for t in APP_TAGS for p in ("moddown", "tail")) \
+    + ("dhi_pair",)
 KERNELS = [
     ("ntt", "hetpu_torch/csrc/ntt.cu", "hetpu/core/mxu_ntt.py:710",
      ("ntt_inv", "ntt_fwd", "ntt_inv_rescale", "ntt_inv_moddown",
       "ntt_fwd_288", "ntt_inv_bfv_q2", "ntt_inv_bfv_q3", "ntt_fwd_bfv_b2",
-      "ntt_inv_bfv_b3", "ntt_inv_bfv_t", "ntt_inv_pair", "ntt_inv_hi_tail"),
+      "ntt_inv_bfv_b3", "ntt_inv_bfv_t", "ntt_inv_pair", "ntt_inv_hi_tail")
+     + tuple(f"{k}_{t}{x}" for t in APP_TAGS for k, x in (
+         ("ntt_inv", ""), ("ntt_fwd", ""), ("ntt_fwd", "_basis"),
+         ("ntt_inv", "_moddown"))),
      "default"),
     ("ntt_fwd_lifted", "hetpu_torch/csrc/fused_ntt.cu",
-     "hetpu/core/mxu_ntt.py:816", ("ntt_fwd_lifted", "ntt_fwd_lifted_bfv"),
-     "default"),
+     "hetpu/core/mxu_ntt.py:816", ("ntt_fwd_lifted", "ntt_fwd_lifted_bfv")
+     + tuple("ntt_fwd_lifted_" + t for t in APP_TAGS), "default"),
     ("ntt_fwd_fbc", "hetpu_torch/csrc/fused_ntt.cu",
      "hetpu/core/mxu_ntt.py:816",
      ("ntt_fwd_fbc", "ntt_fwd_fbc_moddown", "ntt_fwd_fbc_ties",
-      "ntt_fwd_fbc_bfv_moddown", "ntt_fwd_fbc_pair", "ntt_fwd_fbc_hi_tail"),
-     "default"),
+      "ntt_fwd_fbc_bfv_moddown", "ntt_fwd_fbc_pair", "ntt_fwd_fbc_hi_tail")
+     + tuple("ntt_fwd_fbc_" + c for c in APP_CONV), "default"),
     ("inner_product", "hetpu_torch/csrc/ip_kernel.cu",
-     "hetpu/core/ip_kernel.py:75", ("inner_product", "inner_product_bfv"),
-     "default"),
+     "hetpu/core/ip_kernel.py:75", ("inner_product", "inner_product_bfv")
+     + tuple("inner_product_" + t for t in APP_TAGS), "default"),
     ("ntt_fwd_centered", "hetpu_torch/csrc/fused_ntt.cu",
      "hetpu/core/mxu_fbc.py:214",
      ("ntt_fwd_centered_tail", "ntt_fwd_centered_moddown",
       "ntt_fwd_centered_lift", "ntt_fwd_centered_ties",
       "ntt_fwd_centered_bfv_lift", "ntt_fwd_centered_bfv_moddown",
-      "ntt_fwd_centered_pair", "ntt_fwd_centered_hi_tail"), "centered"),
+      "ntt_fwd_centered_pair", "ntt_fwd_centered_hi_tail")
+     + tuple(f"ntt_fwd_centered_{t}_lift" for t in APP_TAGS)
+     + tuple("ntt_fwd_centered_" + c for c in APP_CONV), "centered"),
     # the standalone conversion: no path launches it any more (0 on the
     # centered run); its function is on the path inside ntt_fwd_centered
     ("centered_fbc", "hetpu_torch/csrc/centered_fbc.cu",
@@ -1283,6 +1711,7 @@ CASE_KEYS = ("shape_in", "shape_out", "ms", "graph_ms", "plain_ms",
 
 
 def main() -> int:
+    start = time.perf_counter()
     name, smi = phase_device()
     rng = np.random.default_rng(2024)
     phase_build()
@@ -1297,12 +1726,16 @@ def main() -> int:
     bfv_sess, bfv_ct, bfv_launches = phase_bfv(rng, smi)
     hi_launches = phase_hi(rng, smi)
     phase_wire(sess, a, b, bfv_sess, bfv_ct)
+    app_launches = {"least_squares": phase_least_squares(smi),
+                    "matmul128": phase_matmul128(smi),
+                    "bfft1024x64": phase_bfft(smi), **phase_server(smi)}
     timings.update(phase_probe_kernels(rng))
     launches = {"default": default["launches"],
                 "centered": centered["launches"],
                 "probes": phase_probes(sess, smi),
-                **bfv_launches, **hi_launches}
+                **bfv_launches, **hi_launches, **app_launches}
     phase_host_cost(rng, smi)
+    log("total", seconds=round(time.perf_counter() - start, 3))
     rows = []
     for kname, src, replaces, cases, path in KERNELS:
         r = timings[cases[0]]

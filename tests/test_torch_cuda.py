@@ -25,7 +25,12 @@ from hetpu_torch.core.nt import gen_primes
 from hetpu_torch.core.ntt import (build_tables, ntt_fwd, ntt_fwd_plain,
                                   ntt_inv, ntt_inv_plain)
 from hetpu_torch.core.params import ckks_params, preset
-from hetpu_torch.offload import pipeline
+from hetpu_torch.fft import bfft
+from hetpu_torch.linalg import BatchedMatrix, Matrix
+from hetpu_torch.offload import (pipeline, recv_request, send_reply,
+                                 send_request)
+from hetpu_torch.offload.client import Client
+from hetpu_torch.offload.server import handle
 from hetpu_torch.probes import copy as copy_probe
 from hetpu_torch.probes import dot, kernel_parts, overhead2
 from hetpu_torch.session import Session
@@ -656,3 +661,157 @@ def test_serial_on_the_card(dev):
         s.ctx.params)), rk, gk, device=dev)
     assert torch.equal(wire.ev.multiply_relin_rescale(ct, ct, wire.rk).data,
                        s.ev.multiply_relin_rescale(ct, ct, s.rk).data)
+
+
+# ----------------------------------------------------------------------
+# the application layer's shapes (ckks_deep_hi at N=2^15, ckks_fft ×64)
+# and its paths on the card against the CPU
+# ----------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def deep_hi(dev):
+    return Context(preset("ckks_deep_hi"), dev)
+
+
+@pytest.mark.parametrize("kind", ["inv", "fwd", "basis", "moddown"])
+def test_deep_hi_ntt_shapes(dev, deep_hi, kind):
+    """K1 at N=2^15 (clusters of 8 CTAs of 512 threads, five register
+    passes): the decompose INTT and the forward NTT over the 25 data
+    primes, the forward NTT over the key basis R=29, the mod-down INTT of
+    the 4 specials."""
+    ks = deep_hi.keyswitch_plan(24)
+    t, rows, kw = {
+        "inv": (deep_hi.tables(24), (1,), dict(strip_mont=True,
+                                                extra=ks.dig_inv)),
+        "fwd": (deep_hi.tables(24), (1,), dict(to_mont=True)),
+        "basis": (ks.basis_tables, (1,), dict(to_mont=True)),
+        "moddown": (ks.moddown.src_tables, (1, 2),
+                    dict(strip_mont=True, extra=ks.moddown.fbc.inv_punit)),
+    }[kind]
+    assert (len(deep_hi.tables(24).primes), len(ks.basis_tables.primes),
+            ks.num_digits) == (25, 29, 7)
+    x = _res(np.random.default_rng(len(kind)), (*rows, len(t.primes), 1 << 15),
+             t.primes, dev)
+    inv = kind in ("inv", "moddown")
+    got = (ntt_inv if inv else ntt_fwd)(x, t, **kw)
+    assert torch.equal(got, (ntt_inv_plain if inv else ntt_fwd_plain)(x, t,
+                                                                       **kw))
+
+
+def _keyswitch_shapes(ctx, rows, dev, seed):
+    """K2 and the K6 lift of the top level, K3 and K6 for the mod-down,
+    the fused rescale tail and (g=2) the pair, K4: each against its twin."""
+    lvl = ctx.num_data - 1
+    n = ctx.params.poly_degree
+    ks = ctx.keyswitch_plan(lvl)
+    rng = np.random.default_rng(seed)
+    y = _res(rng, (rows, lvl + 1, n), ctx.params.moduli[: lvl + 1], dev)
+    lift = (ks.lift_w, ks.lift_ws, ks.lift_dig, ks.foreign_cat_tables)
+    assert torch.equal(fused_ntt.ntt_fwd_lifted(y, *lift),
+                       fused_ntt.ntt_fwd_lifted_plain(y, *lift))
+    clift = (ks.lift_w, ks.lift_ws, ks.lift_dig, ks.q[: lvl + 1],
+             ks.foreign_cat_tables)
+    assert torch.equal(fused_ntt.ntt_fwd_centered_lift(y, *clift),
+                       fused_ntt.ntt_fwd_centered_lift_plain(y, *clift))
+    plans = [ks.moddown, ctx.moddown_rescale_plan(lvl)]
+    if ctx.params.rescale_group == 2:
+        plans.append(ctx.group_rescale_plan(lvl))
+    for plan in plans:
+        src, dt = plan.src_tables.primes, plan.dst_tables
+        u = _res(rng, (rows, 2, len(src), n), src, dev)
+        assert torch.equal(fused_ntt.ntt_fwd_fbc(u, plan.fbc, dt),
+                           fused_ntt.ntt_fwd_fbc_plain(u, plan.fbc, dt))
+        cplan = ctx.centered_fbc_plan(plan.fbc)
+        assert torch.equal(fused_ntt.ntt_fwd_centered_fbc(u, cplan, dt),
+                           fused_ntt.ntt_fwd_centered_fbc_plain(u, cplan, dt))
+    primes = ks.basis_tables.primes
+    ext = _res(rng, (rows, ks.num_digits, len(primes), n), primes, dev)
+    k = _res(rng, (ks.num_digits, 2, len(primes), n), primes, dev)
+    k_sh = shoup_companion(k, ks.q)
+    assert torch.equal(ip_kernel.inner_product(ext, k, k_sh, ks.q),
+                       ip_kernel.inner_product_plain(ext, k, k_sh, ks.q))
+
+
+def test_deep_hi_keyswitch_shapes(dev, deep_hi):
+    """ckks_deep_hi's top level at one row: the lift [1,25,N] → 7 digits
+    over R=29, conversions from the 4 specials, the fused tail and the
+    pair onto 23 primes (25-target α at the mod-down), K4 [1,7,29,N]."""
+    _keyswitch_shapes(deep_hi, 1, dev, 71)
+
+
+def test_fft64_keyswitch_shapes(dev):
+    """ckks_fft's top level at 64 rows (bfft over 64 ciphertexts): the
+    lift [64,11,N], the conversions, K4 [64,4,14,N]."""
+    _keyswitch_shapes(Context(preset("ckks_fft"), dev), 64, dev, 72)
+
+
+@pytest.fixture(scope="module")
+def tiny_pair(dev):
+    kw = dict(seed=b"\x0c" * 32, galois_steps=[1, 2, 3, -1, -2, -4, 4])
+    s = Session.create("test_tiny", device=dev, **kw)
+    cpu = Session.from_wire(s.ctx.params, s.rk, s.gk, device="cpu")
+    return s, cpu
+
+
+def test_matrix_card_equals_cpu(dev, tiny_pair):
+    """Matrix (2×3 @ 3×2, one operand transposed) and BatchedMatrix
+    diag×col (4×4) on the card equal the CPU path on the same inputs."""
+    s, cpu = tiny_pair
+    rng = np.random.default_rng(15)
+    a = Matrix.encrypt(s, rng.uniform(-1, 1, (2, 3)))
+    b = Matrix.encrypt(s, rng.uniform(-1, 1, (2, 3)))
+    on = lambda m, sess: Matrix(sess, m.ct.to(sess.ctx.device), m.rows,
+                                m.cols, m.transposed)
+    got = a.matmul(b.transp()).ct.data
+    assert torch.equal(got.cpu(), on(a, cpu).matmul(on(b, cpu).transp()
+                                                    ).ct.data)
+    A, B4 = rng.uniform(-1, 1, (2, 4, 4))
+    ma = BatchedMatrix.encrypt(s, A, "diag")
+    mb = BatchedMatrix.encrypt(s, B4, "col")
+    cuda_lib.reset_launches()
+    got = ma.matmul(mb).ct.data
+    assert cuda_lib.launches["inner_product"] > 0
+    mv = lambda m: BatchedMatrix(cpu, m.ct.to("cpu"), m.rows, m.cols,
+                                 m.layout)
+    assert torch.equal(got.cpu(), mv(ma).matmul(mv(mb)).ct.data)
+
+
+def test_bfft_card_equals_cpu(dev, tiny_pair):
+    """A 4-point in-slot FFT (the merged ±2 stage, then ±1): test_tiny's
+    two levels."""
+    s, cpu = tiny_pair
+    sig = np.random.default_rng(16).uniform(-1, 1, 4)
+    ct = s.encrypt(np.tile(sig, s.slots // 4))
+    got = bfft(s, ct, 4).data
+    assert torch.equal(got.cpu(), bfft(cpu, ct.to("cpu"), 4).data)
+
+
+def test_server_reply_card_equals_cpu(dev):
+    """One request (simple at test_tiny) served on the card and on the
+    CPU: the reply frames are equal byte for byte."""
+    class Wire:
+        def __init__(self, frames=()):
+            self.sent, self.frames = [], list(frames)
+
+        def send(self, b):
+            self.sent.append(bytes(b))
+
+        def recv(self):
+            return self.frames.pop(0)
+
+    client = Client("test_tiny", galois_steps=[1], seed=b"\x05" * 32,
+                    device=dev)
+    x = np.random.default_rng(17).uniform(-1, 1, (2, client.sess.slots))
+    w = Wire()
+    ops = [client._encrypt_seeded(v) for v in x]
+    send_request(w, "simple", client.sess.ctx.params, rk=client.sess.rk,
+                 cts=[c for c, _ in ops], seeds=[sd for _, sd in ops])
+    replies = []
+    for device in (dev, "cpu"):
+        header, sess, cts = recv_request(Wire(w.sent), device=device)
+        assert sess.decryptor is None
+        out = Wire()
+        send_reply(out, handle(header, sess, cts))
+        replies.append(out.sent)
+    assert replies[0] == replies[1]
+

@@ -8,12 +8,16 @@
   * CPU tensors take the plain paths: every kernel launch counter stays 0;
   * a tensor on any other device raises instead of falling back;
   * the entry points run on the card unless given ``device="cpu"``, and
-    raise where there is none.
+    raise where there is none;
+  * the port's transport loader builds its library under
+    ``build/hetpu_torch/`` only, never next to ``native/hetpu_io.cpp``.
 """
 
 import ast
+import hashlib
 import inspect
 import os
+import shutil
 import subprocess
 import sys
 import textwrap
@@ -29,6 +33,9 @@ from hetpu_torch.core import cuda_lib, fused_ntt, ip_kernel, serial
 from hetpu_torch.core.context import Context
 from hetpu_torch.core.ntt import ntt_fwd, ntt_inv
 from hetpu_torch.core.params import preset
+from hetpu_torch.offload import recv_request
+from hetpu_torch.offload.client import Client
+from hetpu_torch.offload.server import serve_once
 from hetpu_torch.session import Session
 from hetpu_torch.utils.keycache import cached_session
 
@@ -52,6 +59,10 @@ def test_import_pulls_no_jax_and_builds_nothing(tmp_path):
         from hetpu_torch.core import cuda_lib
         from hetpu_torch.offload import pipeline
         from hetpu_torch.session import Session
+        import hetpu_torch.ops, hetpu_torch.linalg, hetpu_torch.fft
+        import hetpu_torch.models.least_squares, hetpu_torch.offload.server
+        import hetpu_torch.offload.client
+        from hetpu_torch.runtime import native
         s = Session.create("test_tiny", seed=b"\\x01" * 32, galois_steps=[1],
                            device="cpu", centered_fbc=True)
         ct = s.encrypt(0.5)
@@ -71,7 +82,7 @@ def test_import_pulls_no_jax_and_builds_nothing(tmp_path):
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "hetpu")]
         assert not bad, bad
-        assert cuda_lib._lib is None
+        assert cuda_lib._lib is None and native._lib is None
         assert sum(cuda_lib.launches.values()) == 0
         print("clean")
     """)
@@ -84,6 +95,48 @@ def test_import_pulls_no_jax_and_builds_nothing(tmp_path):
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("clean")
     assert not any(cuda_lib.BUILD_DIR.glob("*.tmp"))
+
+
+def _tree(root: Path) -> dict:
+    return {str(p.relative_to(root)): p.stat().st_mtime_ns
+            for p in root.rglob("*") if p.is_file()
+            and "__pycache__" not in p.parts}
+
+
+def test_transport_loader_builds_under_build_only(tmp_path):
+    """A copy of the port and of native/ whose prebuilt library is older
+    than its source (the case in which hetpu's loader rebuilds
+    native/libhetpu_io.so in place): loading the port's transport writes
+    only under build/hetpu_torch/ and leaves native/ as it was, bytes and
+    mtimes."""
+    shutil.copytree(REPO / "hetpu_torch", tmp_path / "hetpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copytree(REPO / "native", tmp_path / "native")
+    so, cpp = tmp_path / "native" / "libhetpu_io.so", \
+        tmp_path / "native" / "hetpu_io.cpp"
+    os.utime(so, ns=(cpp.stat().st_mtime_ns - 10**9,) * 2)
+    before = _tree(tmp_path)
+    so_bytes = so.read_bytes()
+    code = textwrap.dedent("""
+        from hetpu_torch.runtime import native
+        a, b = native.pipe_pair()
+        a.send(b"frame")
+        assert b.recv() == b"frame" and b.kind == "python"
+        print("built" if native._lib else "python only")
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                          env=dict(os.environ, PYTHONPATH=str(tmp_path)),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    after = _tree(tmp_path)
+    changed = {k for k in after if before.get(k) != after[k]}
+    assert all(k.startswith("build/hetpu_torch/") for k in changed), changed
+    assert so.read_bytes() == so_bytes
+    assert after["native/libhetpu_io.so"] == before["native/libhetpu_io.so"]
+    if proc.stdout.strip() == "built":         # a C++ compiler was found
+        digest = hashlib.sha256(cpp.read_bytes()).hexdigest()[:16]
+        assert [k for k in changed if k.endswith(".so")] == \
+            [f"build/hetpu_torch/libhetpu_io_{digest}.so"]
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "kernel_ab.py"])
@@ -140,14 +193,15 @@ def test_other_devices_raise():
 
 def test_entry_points_default_to_the_card():
     """Session.create, Session.from_wire, BfvSession.create, Context,
-    convert.*, the serial loaders that take no context and cached_session
-    default to device="cuda"; without a card they raise instead of falling
-    back."""
+    convert.*, the serial loaders that take no context, cached_session and
+    the offload entry points (recv_request, serve_once, Client) default to
+    device="cuda"; without a card they raise instead of falling back."""
     for fn in (Session.create, Session.from_wire, Context.__init__,
                BfvSession.create, convert.secret_key, convert.public_key,
                convert.kswitch_key, convert.relin_keys, convert.galois_keys,
                convert.ciphertext, convert.plaintext, serial.load_public_key,
-               serial.load_plaintext, cached_session):
+               serial.load_plaintext, cached_session, recv_request,
+               serve_once, Client.__init__):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     if torch.cuda.is_available():
         assert Context(preset("test_tiny")).device.type == "cuda"
@@ -164,6 +218,8 @@ def test_entry_points_default_to_the_card():
                      type("Pk", (), dict(data=torch.zeros(2, 1, 8,
                                                           dtype=torch.int32))))),
                  lambda: convert.ciphertext(
-                     type("Ct", (), dict(data=arr, level=0, scale=1.0)))):
+                     type("Ct", (), dict(data=arr, level=0, scale=1.0))),
+                 lambda: Client("test_tiny", seed=b"\x03" * 32,
+                                galois_steps=[])):
         with pytest.raises((RuntimeError, AssertionError)):
             call()
