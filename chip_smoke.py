@@ -10,6 +10,23 @@ run exits non-zero without a result line):
   2. build  — compiles hetpu_torch/csrc/*.cu with nvcc (one process per
      source, in parallel) into build/hetpu_torch/ (at first use; rebuilt
      when the sources change);
+ 19. parallel (right after the build, so that the spawned ranks only load
+     the library) — 2 and then 4 processes on cuda:0 (gloo group, file
+     store under build/chip_smoke_ranks/): P5 ``peer_permute`` against
+     its gloo twin at the snippet's [8,128] f32 and the butterfly's
+     [2,13,N] int32, timed on rank 0 (eager, cold, and cudaMemcpyAsync
+     into the mapped peer buffer as the library yardstick; the twin on
+     the host clock); then the parallel path, launches counted around it:
+     tp_relinearize and tp_rotate(1) at bench_n14 level 7, cp_ntt_fwd /
+     cp_ntt_inv over the 9 data primes, bucketed_matvec d=8 and, at 2
+     ranks, evaluate_sharded_infer B=8 — each equal to its single-rank
+     result on the card; the 2 ranks then serve this process's
+     run_client_infer (bench_n14, B=8, error < 5e-3); here, the
+     bucketed ciphertexts at rot 2 and 4 equal rot 1's and decrypt within
+     1e-2 of A·v, and evaluate_sharded_infer with no mesh equals
+     infer_step.  infer_step alone, and evaluate_sharded_infer at dp 1 and
+     2, are timed over 5 calls (median, least, most).  The ranks share one
+     card: their times are one card's, not scaling;
   3. NTT golden — the ``ntt`` kernel forward and inverse on the 14-prime
      N=2^14 basis of tests/golden/golden_n14.npz, bit-exact;
   4. kernel vs plain — each of the six kernels against its plain PyTorch
@@ -119,7 +136,8 @@ Launch counts are zeroed just before each path and read just after it
 (a CUDA graph's replay counts the kernels its capture recorded); the
 ``kernels`` line reports each kernel's launches on the inference path
 (K5, K6: on its centered run, where the standalone K5 reads 0; P1–P4: on
-the probes' run) and, under ``launches_by_path``, on every path (the BFV
+the probes' run; P5: on the parallel path of rank 0 of 2) and, under
+``launches_by_path``, on every path (the BFV
 multiply_relin and chain, each paired-prime op in each mode, least
 squares, matmul128, bfft1024x64 and each server workload), its eager
 ``ms`` and cold-L2 ``graph_ms``, the library call's eager ms, and under
@@ -158,7 +176,7 @@ from hetpu_torch.core.ntt import (build_tables, ntt_fwd, ntt_fwd_mont,
                                   ntt_fwd_plain, ntt_inv, ntt_inv_plain)
 from hetpu_torch.core.params import preset
 from hetpu_torch.core.rns import fbc_apply
-from hetpu_torch import probes
+from hetpu_torch import parallel, probes
 from hetpu_torch.fft import bfft, bit_reverse_order
 from hetpu_torch.linalg import BatchedMatrix
 from hetpu_torch.models.least_squares import least_squares_2d
@@ -1650,6 +1668,302 @@ def phase_host_cost(rng, smi: str) -> None:
                                        for k, fn in calls.items()}, card=smi)
 
 
+# ----------------------------------------------------------------------
+# the parallel layer: SPMD ranks on the card (phase 19)
+# ----------------------------------------------------------------------
+
+PAR_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_ranks"
+PAR_SEED = b"\x21" * 32
+PAR_STEPS = list(range(N_DIAGS))      # 0..7: bucketed_matvec and infer_step
+TP_LEVEL = 7                   # L = 8 limbs: the top level's 9 divide no 2^k
+MATVEC_D = 8
+MATVEC_ERR = 1e-2              # tests/test_parallel.py:214
+PAR_TIMEOUT_S = 300
+SNIPPET = (8, 128)             # SNIPPETS.md: an [8, 128] f32 shard a device
+PIPE_CALLS = 5                 # calls timed a pipeline step (median, spread)
+
+
+def _seconds(fn, mesh=None) -> dict:
+    """Host seconds of ``PIPE_CALLS`` calls of ``fn``, each between two
+    card syncs (the ranks of ``mesh`` meet at a barrier before each): the
+    median with the least and the most, after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(PIPE_CALLS):
+        torch.cuda.synchronize()
+        if mesh is not None:
+            mesh.barrier()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return {"median": statistics.median(times), "min": min(times),
+            "max": max(times), "calls": PIPE_CALLS}
+
+
+def _par_inputs(sess) -> dict:
+    """The global inputs every rank (and the parent) builds alike: values
+    from a seeded rng, encryptions under fixed seeds."""
+    rng = np.random.default_rng(808)
+    n, slots = sess.ctx.params.poly_degree, sess.slots
+    enc = lambda v, tag, level=None: sess.encrypt(
+        v, level=level, seed=bytes([tag]) * 32)
+    x, y = rng.uniform(-1, 1, (2, slots))
+    A = rng.uniform(-1, 1, (MATVEC_D, MATVEC_D))
+    v = rng.uniform(-1, 1, MATVEC_D)
+    rows = [enc(np.tile([A[i, (i + j) % MATVEC_D]
+                         for i in range(MATVEC_D)], 2), 10 + j).data
+            for j in range(MATVEC_D)]
+    xs = rng.uniform(-1, 1, (B, slots))
+    primes = sess.ctx.params.moduli
+    return {
+        "c3": sess.ev.multiply(enc(x, 1, TP_LEVEL), enc(y, 2, TP_LEVEL)),
+        "ct": enc(x, 3, TP_LEVEL),
+        "cp_x": residues(rng, (len(primes), n), primes),
+        "cp_y": residues(rng, (len(primes), n), primes),
+        "diags": enc(np.zeros(MATVEC_D), 30).with_(data=torch.stack(rows)),
+        "vec": enc(np.tile(v, 2), 31), "A": A, "v": v,
+        "inf": [enc(xs[i], 40 + i) for i in range(B)]}
+
+
+def _p5_case(name, x, mesh, perm) -> dict:
+    """P5 on ``x`` (this rank's CUDA tensor) against its gloo twin on the
+    same values; every rank times the twin and the whole exchange (launch,
+    stream sync, two barriers, read-out) on the host clock; rank 0 then
+    times one store of its ``x`` into its peer's buffer (the kernel, and
+    cudaMemcpyAsync as the library yardstick) while the others wait."""
+    from hetpu_torch.parallel import peer
+    got = parallel.ppermute(x, mesh, "x", perm)
+    want = parallel.ppermute(x.cpu(), mesh, "x", perm)
+    torch.cuda.synchronize()
+    if not torch.equal(got.cpu(), want):
+        raise AssertionError(f"{name}: peer_permute differs from its twin")
+    n = mesh.shape["x"]
+    host_ms = lambda v: (time.perf_counter() - v) / TIMED_RUNS * 1e3
+    t0 = time.perf_counter()
+    for _ in range(TIMED_RUNS):
+        parallel.ppermute(x.cpu(), mesh, "x", perm)
+    plain_ms = host_ms(t0)
+    t0 = time.perf_counter()
+    for _ in range(TIMED_RUNS):
+        parallel.ppermute(x, mesh, "x", perm)
+    exchange_ms = host_ms(t0)
+    r = {"max_abs_err": 0.0, "plain_ms": plain_ms,
+         "exchange_ms": exchange_ms,
+         "shape_in": list(x.shape), "shape_out": list(got.shape),
+         "bound_by": "bytes", "bound_ms": 2 * x.nbytes / HBM_BYTES_PER_S * 1e3,
+         "ranks": n}
+    if mesh.rank == 0:
+        dst = dict(perm)[0]
+        segs = [(x, 0, mesh.axis_ranks("x")[dst], 0, x.nbytes)]
+        own, peers = mesh.exchange.buffer(x.nbytes)
+        kernel = lambda: peer.store(mesh, segs, x.nbytes)
+        library = lambda: peer.copy(peers[segs[0][2]], x.data_ptr(),
+                                    x.nbytes, mesh.device)
+        r.update(ms=median_ms(kernel), graph_ms=probes.cold_ms(kernel),
+                 library_ms=median_ms(library),
+                 library_graph_ms=probes.cold_ms(library))
+    torch.cuda.synchronize()
+    mesh.barrier()
+    return r
+
+
+def _par_rank(rank: int, world: int, workdir: str, sock=None) -> None:
+    """One SPMD rank on cuda:0: P5 against its twin (and timed), then the
+    parallel path with the launches counted around it — tp_relinearize,
+    tp_rotate(1), cp_ntt_fwd / cp_ntt_inv, bucketed_matvec and, at 2
+    ranks, evaluate_sharded_infer — each held against its single-rank
+    result on the card; at 2 ranks it then serves one pipeline_infer
+    request on ``sock``.  Rank 0 writes the results."""
+    import datetime
+    import torch.distributed as dist
+    from hetpu_torch.parallel import cp, tp
+    work = Path(workdir)
+    dist.init_process_group("gloo", init_method=f"file://{work}/store{world}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=PAR_TIMEOUT_S))
+    try:
+        torch.cuda.set_device(0)
+        mesh = parallel.make_mesh((world,), ("x",))
+        res, arrays = {"world": world}, {}
+        g = torch.Generator().manual_seed(rank)
+        snip = torch.randn(SNIPPET, generator=g).to(mesh.device)
+        fly = torch.randint(0, 1 << 30, (2, 13, 1 << 14), generator=g,
+                            dtype=torch.int32).to(mesh.device)
+        right = [(i, (i + 1) % world) for i in range(world)]
+        res["p5"] = {"snippet": _p5_case("snippet", snip, mesh, right),
+                     "butterfly": _p5_case("butterfly", fly, mesh,
+                                           [(i, i ^ 1) for i in range(world)])}
+        t0 = time.perf_counter()
+        sess = Session.create("bench_n14", seed=PAR_SEED,
+                              galois_steps=PAR_STEPS)
+        inp = _par_inputs(sess)
+        res["setup_s"] = time.perf_counter() - t0
+        meshes = {a: parallel.make_mesh((world,), (a,))
+                  for a in ("tp", "cp", "rot", "dp")}
+        t4 = cp.build_tables(sess.ctx.params.poly_degree,
+                             sess.ctx.params.moduli, mesh.device)
+        diags, act = pipeline._infer_weights(sess.slots, N_DIAGS, WSEED)
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        out = {"relin": tp.tp_relinearize(sess, inp["c3"], meshes["tp"]),
+               "rot1": tp.tp_rotate(sess, inp["ct"], 1, meshes["tp"]),
+               "cp_fwd": cp.cp_ntt_fwd(inp["cp_x"], t4, meshes["cp"]),
+               "cp_inv": cp.cp_ntt_inv(inp["cp_y"], t4, meshes["cp"]),
+               "matvec": parallel.bucketed_matvec(
+                   sess, inp["diags"], inp["vec"], MATVEC_D, meshes["rot"],
+                   "rot")}
+        if world == 2:
+            out["infer"] = pipeline.evaluate_sharded_infer(
+                sess, inp["inf"], WSEED, N_DIAGS, meshes["dp"])
+        torch.cuda.synchronize()
+        res["path_s"] = time.perf_counter() - t0
+        res["launches"] = dict(cuda_lib.launches)
+        tabs = sess.ctx.tables(sess.ctx.num_data - 1)
+        want = {"relin": sess.ev.relinearize(inp["c3"], sess.rk).data,
+                "rot1": sess.ev.rotate(inp["ct"], 1, sess.gk).data,
+                "cp_fwd": ntt_fwd(inp["cp_x"], tabs),
+                "cp_inv": ntt_inv(inp["cp_y"], tabs)}
+        got = {k: (v if isinstance(v, torch.Tensor) else v.data)
+               for k, v in out.items() if k != "infer"}
+        if world == 2:
+            single = pipeline.infer_step(sess, stack(inp["inf"]), diags, act)
+            again = pipeline.evaluate_sharded_infer(
+                sess, inp["inf"], WSEED, N_DIAGS, meshes["dp"])
+            res["infer_sharded_s"] = _seconds(
+                lambda: pipeline.evaluate_sharded_infer(
+                    sess, inp["inf"], WSEED, N_DIAGS, meshes["dp"]),
+                meshes["dp"])
+            want["infer"] = single.data
+            got["infer"] = torch.stack([c.data for c in out["infer"]])
+            if not torch.equal(torch.stack([c.data for c in again]),
+                               got["infer"]):
+                raise AssertionError("evaluate_sharded_infer differs "
+                                     "between two calls")
+        res["equal"] = {k: bool(torch.equal(got[k], want[k])) for k in want}
+        if not all(res["equal"].values()):
+            raise AssertionError(f"rank {rank}: sharded results differ from "
+                                 f"the single-rank ones: {res['equal']}")
+        arrays["matvec"] = to_u32(got["matvec"])
+        res["matvec_meta"] = [out["matvec"].level, out["matvec"].scale]
+        if sock is not None:
+            t = native.Transport(sock=sock) if rank == 0 else None
+            if rank != 0:
+                sock.close()
+            t0 = time.perf_counter()
+            res["served"] = pipeline.serve_pipeline(t, meshes["dp"])
+            res["serve_s"] = time.perf_counter() - t0
+        for m in (mesh, *meshes.values()):
+            m.close()
+        if rank == 0:
+            np.savez(work / f"w{world}.npz", **arrays)
+            (work / f"w{world}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn(world: int, sock=None):
+    import torch.multiprocessing as mp
+    args = (world, str(PAR_DIR)) + ((sock,) if sock is not None else ())
+    return mp.start_processes(_par_rank, args=args, nprocs=world,
+                              join=False, start_method="spawn")
+
+
+def _join(ctx) -> None:
+    deadline = time.monotonic() + PAR_TIMEOUT_S
+    while not ctx.join(timeout=1):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise AssertionError("parallel ranks did not finish")
+
+
+def phase_parallel(smi: str) -> tuple[dict, dict]:
+    """Phase 19: the parallel layer on the card, 2 and 4 ranks on cuda:0
+    (they time-slice one card: the times are one card's, never scaling
+    numbers).  Each rank: P5 against its gloo twin at the snippet's shape
+    and the butterfly's [J=2, R=13, N]; tp_relinearize and tp_rotate(1)
+    at bench_n14 level 7, cp_ntt_fwd / cp_ntt_inv over the 9 data primes,
+    bucketed_matvec d=8 and (2 ranks) evaluate_sharded_infer B=8, each
+    equal to its single-rank result; then the 2 ranks serve
+    run_client_infer (bench_n14, B=8) from this process.  Here: the
+    bucketed ciphertexts at rot 2 and 4 equal rot 1's (a one-rank mesh)
+    and decrypt within 1e-2 of A·v; evaluate_sharded_infer with no mesh
+    (one rank on the default-device session's card) equals infer_step, and
+    both are timed alone on the card."""
+    import shutil
+    import socket
+    shutil.rmtree(PAR_DIR, ignore_errors=True)
+    PAR_DIR.mkdir(parents=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    a, b = socket.socketpair()
+    a.settimeout(PAR_TIMEOUT_S)
+    ctx2 = _spawn(2, b)
+    b.close()
+    try:
+        err, res = pipeline.run_client_infer(
+            native.Transport(sock=a), batch=B, params="bench_n14",
+            n_diags=N_DIAGS, wseed=WSEED, seed=PAR_SEED)
+    finally:
+        a.close()
+        _join(ctx2)
+    client_s = time.perf_counter() - t0
+    if not err < 5e-3 or len(res) != B:
+        raise AssertionError(f"pipeline client: error {err}, {len(res)} "
+                             "results")
+    _join(_spawn(4))
+    sess = Session.create("bench_n14", seed=PAR_SEED, galois_steps=PAR_STEPS)
+    inp = _par_inputs(sess)
+    one = parallel.bucketed_matvec(sess, inp["diags"], inp["vec"], MATVEC_D,
+                                   parallel.make_mesh((1,), ("rot",)), "rot")
+    dec = sess.decrypt(one).real[:MATVEC_D]
+    mv_err = float(np.abs(dec - inp["A"] @ inp["v"]).max())
+    if not mv_err < MATVEC_ERR:
+        raise AssertionError(f"bucketed_matvec error {mv_err}")
+    diags, act = pipeline._infer_weights(sess.slots, N_DIAGS, WSEED)
+    batch = stack(inp["inf"])
+    single = pipeline.infer_step(sess, batch, diags, act)
+    alone = pipeline.evaluate_sharded_infer(sess, inp["inf"], WSEED, N_DIAGS)
+    if not torch.equal(torch.stack([c.data for c in alone]), single.data):
+        raise AssertionError("evaluate_sharded_infer without a mesh differs "
+                             "from infer_step")
+    alone_s = {
+        "infer_step": _seconds(
+            lambda: pipeline.infer_step(sess, batch, diags, act)),
+        "evaluate_sharded_infer": _seconds(
+            lambda: pipeline.evaluate_sharded_infer(
+                sess, inp["inf"], WSEED, N_DIAGS))}
+    runs = {}
+    for w in (2, 4):
+        runs[w] = json.loads((PAR_DIR / f"w{w}.json").read_text())
+        got = np.load(PAR_DIR / f"w{w}.npz")["matvec"]
+        if not np.array_equal(got, to_u32(one.data)) \
+                or runs[w]["matvec_meta"] != [one.level, one.scale]:
+            raise AssertionError(f"bucketed_matvec at rot {w} differs from "
+                                 "rot 1")
+    launches = runs[2]["launches"]
+    missing = [k for k in ("peer_permute", "ntt", "ntt_fwd_lifted",
+                           "ntt_fwd_fbc", "inner_product")
+               if launches[k] <= 0]
+    if missing or runs[2]["served"] != B:
+        raise AssertionError(f"parallel path: not launched {missing}, "
+                             f"served {runs[2].get('served')}")
+    timings = {}
+    for w in (2, 4):
+        for shape, r in runs[w]["p5"].items():
+            timings[f"peer_permute_{shape}_n{w}"] = r
+    log("parallel", seconds=round(time.perf_counter() - t0, 3),
+        client_infer={"max_err": err, "seconds": round(client_s, 3)},
+        matvec_max_err=mv_err, one_rank_s=alone_s,
+        ranks={w: {k: v for k, v in r.items() if k != "p5"}
+               for w, r in runs.items()},
+        note="ranks time-slice one card: one card's times, not scaling",
+        card=smi)
+    return timings, launches
+
+
 # name, source, replaced TPU kernel, timing cases (first = the row's
 # times; the others are in the kernel_vs_plain lines), path of the launches
 PARTS = tuple("plane_parts_" + v for v in kernel_parts.VARIANTS)
@@ -1703,11 +2017,15 @@ KERNELS = [
      ("plane_parts_twiddle",) + tuple(c for c in PARTS
                                       if c != "plane_parts_twiddle"),
      "probes"),
+    ("peer_permute", "hetpu_torch/csrc/peer.cu", "SNIPPETS.md:39",
+     tuple(f"peer_permute_{s}_n{w}" for s in ("snippet", "butterfly")
+           for w in (2, 4)), "parallel"),
 ]
 
 
 CASE_KEYS = ("shape_in", "shape_out", "ms", "graph_ms", "plain_ms",
-             "bound_ms", "bound_by", "imul_bound_ms", "library_ms")
+             "bound_ms", "bound_by", "imul_bound_ms", "library_ms",
+             "library_graph_ms", "exchange_ms")
 
 
 def main() -> int:
@@ -1715,6 +2033,7 @@ def main() -> int:
     name, smi = phase_device()
     rng = np.random.default_rng(2024)
     phase_build()
+    par_timings, par_launches = phase_parallel(smi)
     phase_ntt_golden()
     timings = phase_kernels(rng)
     phase_goldens()
@@ -1730,10 +2049,12 @@ def main() -> int:
                     "matmul128": phase_matmul128(smi),
                     "bfft1024x64": phase_bfft(smi), **phase_server(smi)}
     timings.update(phase_probe_kernels(rng))
+    timings.update(par_timings)
     launches = {"default": default["launches"],
                 "centered": centered["launches"],
                 "probes": phase_probes(sess, smi),
-                **bfv_launches, **hi_launches, **app_launches}
+                **bfv_launches, **hi_launches, **app_launches,
+                "parallel": par_launches}
     phase_host_cost(rng, smi)
     log("total", seconds=round(time.perf_counter() - start, 3))
     rows = []

@@ -9,11 +9,12 @@ repository root; the library's file name carries a hash of the sources
 and flags, so an edited source rebuilds.
 
 Each kernel wrapper (``ntt.py``, ``fused_ntt.py``, ``ip_kernel.py``,
-``centered_fbc.py``, and the probes' ``copy.py``, ``overhead2.py``,
-``dot.py`` and ``kernel_parts.py``) checks its tensors, allocates outputs with
-``torch.empty``, launches on ``torch.cuda.current_stream()``, raises on a
-non-zero ``cudaGetLastError()`` and adds one to its entry in
-:data:`launches`.  A call made inside :func:`recording` (a CUDA graph
+``centered_fbc.py``, ``parallel/peer.py``, and the probes' ``copy.py``,
+``overhead2.py``, ``dot.py`` and ``kernel_parts.py``) checks its tensors,
+allocates outputs with ``torch.empty`` (``peer.py`` stores into exchange
+buffers the library allocates), launches on
+``torch.cuda.current_stream()``, raises on a non-zero
+``cudaGetLastError()`` and adds one to its entry in :data:`launches`.  A call made inside :func:`recording` (a CUDA graph
 capture) does not launch: it records the kernel into the graph and counts
 there instead; each replay of that graph launches the recorded kernels
 and counts them in :data:`launches` (:func:`count_replay`).
@@ -42,13 +43,14 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 launches = {"ntt": 0, "ntt_fwd_lifted": 0, "ntt_fwd_fbc": 0,
             "ntt_fwd_centered": 0, "inner_product": 0, "centered_fbc": 0,
             "copy_planes": 0, "muladd_u32": 0, "dot_i8": 0,
-            "plane_parts": 0}
+            "plane_parts": 0, "peer_permute": 0}
 
 _lock = threading.Lock()
 _lib = None
 _recorded = None           # counts of the capture in progress (recording)
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+_Q = ctypes.c_ulonglong
 _SIGNATURES = {
     # x, out, rows, L, logn, w, ws, q, c1, c2, inverse, stream
     "hetpu_ntt": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P),
@@ -77,6 +79,15 @@ _SIGNATURES = {
     "hetpu_dot_i8": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # x, w, tw, tws, out, planes, L, q, variant, stream
     "hetpu_plane_parts": (_P, _P, _P, _P, _P, _I, _I, _U, _I, _P),
+    # srcs, dsts, bytes (host arrays of nseg), nseg, stream
+    "hetpu_peer_permute": (_P, _P, _P, _I, _P),
+    # the exchange buffers of parallel/peer.py (no launch, not counted):
+    "hetpu_peer_alloc": (_Q, _P),          # bytes, &ptr
+    "hetpu_peer_free": (_P,),
+    "hetpu_peer_handle": (_P, _P),         # ptr, 64-byte handle out
+    "hetpu_peer_open": (_P, _P),           # 64-byte handle, &ptr
+    "hetpu_peer_close": (_P,),
+    "hetpu_peer_copy": (_P, _P, _Q, _P),   # dst, src, bytes, stream
 }
 
 

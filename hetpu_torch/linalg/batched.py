@@ -17,8 +17,8 @@ Layouts (square d×d, one bvec per leading index):
   col  — bvec j, slot i  =  M[i, j]
   diag — bvec j, slot i  =  M[i, (i+j) mod d]
 
-The port runs on one device: hetpu's mesh-routed matvec
-(``parallel.bucketed_matvec``) has no counterpart here yet.
+With a mesh active on the session (``Session.use_mesh``), the diag×col
+matvec routes through ``parallel.bucketed_matvec``.
 """
 
 from __future__ import annotations
@@ -335,6 +335,15 @@ class BatchedMatrix:
             raise ValueError(f"inner dim {self.cols} vs {other.rows}")
         a, b = sess.align(self.ct, other.ct)
         d, p = self.rows, other.cols
+        if sess.mesh is not None and self._mesh_routable(sess.mesh, d, p):
+            # the rotation loop bucketed over the mesh: rotation buckets
+            # and their galois keys per rank, one modular all-reduce
+            from .. import parallel
+            out = parallel.bucketed_matvec(
+                sess, a, b.with_(data=b.data[0]), d, sess.mesh,
+                sess.mesh_axis)
+            return self._wrap(out.with_(data=out.data[None]), "col",
+                              rows=d, cols=1)
         q = sess.ctx.mont(a.level)["q"]
         rots = ev.rotate_hoisted(b, list(range(d)), sess.gk)  # batched over cols
         prods = []
@@ -345,6 +354,17 @@ class BatchedMatrix:
         c3 = Ciphertext(data=acc, level=a.level, scale=a.scale * b.scale)
         out = ev.rescale(ev.relinearize(c3, sess.rk))
         return self._wrap(out, "col", rows=d, cols=p)
+
+    def _mesh_routable(self, mesh, d: int, p: int) -> bool:
+        """bucketed_matvec covers the matvec: one column, a rotation count
+        divisible by the mesh axis, galois keys for every step 0..d−1
+        (step 0: the identity element's self key switch)."""
+        sess = self.sess
+        axis = sess.mesh_axis
+        if axis not in mesh.shape or p != 1 or d % mesh.shape[axis]:
+            return False
+        n = sess.ctx.params.poly_degree
+        return all(sess.gk.has(galois.rotation_elt(n, s)) for s in range(d))
 
     def matmul_cols_t(self, other: "BatchedMatrix") -> "BatchedMatrix":
         """col×col → A·Bᵀ in diag layout (the reference's col×colᵀ path):

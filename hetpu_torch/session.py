@@ -3,7 +3,7 @@ device.
 
 Counterpart of ``hetpu/session.py`` (``Session.create``, ``from_wire``,
 encode/encrypt/decrypt, the plaintext-constant cache, the level and scale
-helpers and the ``mat_*`` protocol of the linalg layer; not ``use_mesh``).
+helpers, ``use_mesh`` and the ``mat_*`` protocol of the linalg layer).
 ``device`` chooses where the keys, tables and ciphertexts live: ``"cuda"``
 (the default) runs the CUDA kernels, ``"cpu"`` their plain PyTorch
 versions; both give the same bits.  ``centered_fbc=True`` routes the
@@ -38,6 +38,19 @@ class Session:
     # (key, level, scale) → Plaintext on the session's device: constants
     # are encoded once and reused
     _pt_cache: dict = field(default_factory=dict, repr=False)
+    # active mesh (use_mesh): the linalg matvec routes through
+    # parallel.bucketed_matvec when set
+    mesh: object = None
+    mesh_axis: str = "rot"
+
+    def use_mesh(self, mesh, axis: str = "rot") -> "Session":
+        """Activate a :class:`..parallel.Mesh`: later ``BatchedMatrix``
+        matvecs bucket their rotation loop over ``mesh[axis]``
+        (``parallel.bucketed_matvec``); every rank of the mesh makes the
+        same calls.  ``None`` deactivates.  Returns self."""
+        self.mesh = mesh
+        self.mesh_axis = axis
+        return self
 
     # -- construction ---------------------------------------------------
     @classmethod

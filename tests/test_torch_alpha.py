@@ -33,7 +33,8 @@ from hetpu_torch.core.context import Context
 from hetpu_torch.core.modular import from_u32, to_u32
 from hetpu_torch.core.params import preset
 from torch_ties import (TIES_4096, TIES_4096_CENTERED, TIES_DNUM,
-                        TIES_DNUM_CENTERED, TIES_N14_TAIL_CENTERED)
+                        TIES_DNUM_CENTERED, TIES_DNUM_MODDOWN,
+                        TIES_N14_TAIL_CENTERED)
 
 torch.set_num_threads(1)
 
@@ -82,11 +83,15 @@ def dnum():
 
 
 @pytest.mark.parametrize("case", ["dnum", "dnum_centered", "n4096",
-                                  "n4096_centered", "n14_centered"])
+                                  "n4096_centered", "n14_centered",
+                                  "dnum_moddown"])
 def test_columns_are_ties(dnum, case):
     """The fma chain (hetpu's jitted α) and a multiply-then-add chain
     round α differently on every listed column."""
-    if case == "n14_centered":
+    if case == "dnum_moddown":
+        primes = preset("test_dnum").special_moduli
+        v = _cols(TIES_DNUM_MODDOWN).astype(np.int64)
+    elif case == "n14_centered":
         p = preset("bench_n14")
         primes = p.moduli[8:9] + p.special_moduli
         v = _center(_cols(TIES_N14_TAIL_CENTERED).astype(np.int64), primes)

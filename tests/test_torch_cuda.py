@@ -8,11 +8,13 @@ Imports neither JAX nor hetpu, so it also runs on a GPU host without JAX:
 (``--noconftest``: tests/conftest.py sets up JAX for the reference tests.)
 """
 
+import json
 import pathlib
 
 import numpy as np
 import pytest
 import torch
+import torch.multiprocessing as mp
 
 from hetpu_torch.bfv import BfvSession
 from hetpu_torch.core import (centered_fbc, cuda_lib, fused_ntt, ip_kernel,
@@ -36,6 +38,7 @@ from hetpu_torch.probes import dot, kernel_parts, overhead2
 from hetpu_torch.session import Session
 from torch_ties import (TIES_DNUM, TIES_DNUM_CENTERED,
                         TIES_N14_TAIL_CENTERED)
+import torch_parallel_ranks as ranks
 
 pytestmark = pytest.mark.cuda
 
@@ -815,3 +818,38 @@ def test_server_reply_card_equals_cpu(dev):
         replies.append(out.sent)
     assert replies[0] == replies[1]
 
+
+def test_peer_permute_two_ranks(dev, tmp_path):
+    """P5 at 2 ranks on the card (processes on cuda:0, buffers mapped with
+    CUDA IPC): every exchange equals its gloo twin on the same values, the
+    kernel launched, and tp_relinearize (test_dnum) and cp at n=2048 on
+    the card equal their single-rank results."""
+    mp.start_processes(ranks.main_card, args=(2, str(tmp_path / "store"),
+                                              str(tmp_path)),
+                       nprocs=2, join=True, start_method="spawn")
+    for r in range(2):
+        res = json.loads((tmp_path / f"card_r{r}.json").read_text())
+        assert res.pop("launches") > 0
+        assert all(res.values()), res
+
+
+def test_sharded_pipeline_without_mesh():
+    """evaluate_sharded and evaluate_sharded_infer with no mesh on a
+    default-device Session ("cuda", no index): one rank on the session's
+    card, each result equal to the unsharded step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sess = Session.create("test_dnum", seed=b"\x38" * 32,
+                          galois_steps=[1, 2, 3])
+    assert sess.ctx.device == torch.device("cuda")
+    x = np.random.default_rng(18).uniform(-1, 1, (2, sess.slots))
+    cts = [sess.encrypt(v) for v in x]
+    diags, act = pipeline._infer_weights(sess.slots, 4, 7)
+    got = pipeline.evaluate_sharded_infer(sess, cts, 7, n_diags=4)
+    batch = cts[0].with_(data=torch.stack([c.data for c in cts]))
+    want = pipeline.infer_step(sess, batch, diags, act)
+    assert torch.equal(torch.stack([c.data for c in got]), want.data)
+    got = pipeline.evaluate_sharded(sess, cts)
+    prod = sess.ev.multiply_relin_rescale(cts[0], cts[1], sess.rk)
+    want = sess.ev.add(prod, sess.ev.rotate(prod, 1, sess.gk))
+    assert len(got) == 1 and torch.equal(got[0].data, want.data)

@@ -33,7 +33,7 @@ from hetpu_torch.core import cuda_lib, fused_ntt, ip_kernel, serial
 from hetpu_torch.core.context import Context
 from hetpu_torch.core.ntt import ntt_fwd, ntt_inv
 from hetpu_torch.core.params import preset
-from hetpu_torch.offload import recv_request
+from hetpu_torch.offload import pipeline, recv_request
 from hetpu_torch.offload.client import Client
 from hetpu_torch.offload.server import serve_once
 from hetpu_torch.session import Session
@@ -63,6 +63,14 @@ def test_import_pulls_no_jax_and_builds_nothing(tmp_path):
         import hetpu_torch.models.least_squares, hetpu_torch.offload.server
         import hetpu_torch.offload.client
         from hetpu_torch.runtime import native
+        import hetpu_torch.parallel.peer, hetpu_torch.parallel.tp
+        from hetpu_torch import parallel
+        from hetpu_torch.parallel import cp
+        import torch
+        m = parallel.make_mesh(names=("cp",), device="cpu")
+        t = cp.build_tables(2048, (12289, 40961), "cpu")
+        v = torch.arange(2 * 2048, dtype=torch.int32).reshape(2, 2048) % 12289
+        assert torch.equal(cp.cp_ntt_inv(cp.cp_ntt_fwd(v, t, m), t, m), v)
         s = Session.create("test_tiny", seed=b"\\x01" * 32, galois_steps=[1],
                            device="cpu", centered_fbc=True)
         ct = s.encrypt(0.5)
@@ -194,14 +202,16 @@ def test_other_devices_raise():
 def test_entry_points_default_to_the_card():
     """Session.create, Session.from_wire, BfvSession.create, Context,
     convert.*, the serial loaders that take no context, cached_session and
-    the offload entry points (recv_request, serve_once, Client) default to
-    device="cuda"; without a card they raise instead of falling back."""
+    the offload entry points (recv_request, serve_once, Client, the
+    pipeline's clients) default to device="cuda"; without a card they
+    raise instead of falling back."""
     for fn in (Session.create, Session.from_wire, Context.__init__,
                BfvSession.create, convert.secret_key, convert.public_key,
                convert.kswitch_key, convert.relin_keys, convert.galois_keys,
                convert.ciphertext, convert.plaintext, serial.load_public_key,
                serial.load_plaintext, cached_session, recv_request,
-               serve_once, Client.__init__):
+               serve_once, Client.__init__, pipeline.run_client,
+               pipeline.run_client_infer):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     if torch.cuda.is_available():
         assert Context(preset("test_tiny")).device.type == "cuda"

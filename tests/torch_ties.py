@@ -15,6 +15,12 @@ TIES_DNUM = [[508039856, 1099080352, 1621637186, 1631625018],
              [37419502, 309566830, 1767178876, 1069488476],
              [454505166, 586600971, 1777398114, 2095414402],
              [92054122, 59180148, 1858753445, 1119026592]]
+# test_dnum, the key-switch mod-down: sources the 3 specials (parallel.tp's
+# α; the tp tests route them into its sources through a crafted key)
+TIES_DNUM_MODDOWN = [[972993366, 762820538, 1485260905],
+                     [1441823206, 564645849, 1214607466],
+                     [622545832, 540458859, 2058066967],
+                     [454748004, 387930481, 231014615]]
 # the same sources, ties of the CENTERED values (y_i > q_i/2 → y_i − q_i)
 TIES_DNUM_CENTERED = [[362438493, 1635477856, 1308414874, 1699663812],
                       [635511566, 1792818991, 214954608, 2089613811],
