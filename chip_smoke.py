@@ -130,17 +130,36 @@ run exits non-zero without a result line):
      (hetpu_torch.probes.run: eager and CUDA-graph chains) and
      kernel_micro on phase 6's session; last, the host's time per call of
      each probe wrapper on one plane, of K1 at the rescale's INTT
-     [8,2,1,N] and of K3 and K6 at the tail (host clock).
+     [8,2,1,N] and of K3 and K6 at the tail (host clock);
+ 20. demos — every suite and name of ``python -m hetpu_torch.demos`` at
+     full size, through the CLI's ``main`` in this process, from a fresh
+     key cache in build/chip_smoke_keys (``keycache.CACHE_DIR``): one line a
+     demo with its preset, seconds, Timer lines, launches, peak device
+     memory and checked values (BFV: every ``exact:`` True, every noise
+     budget > 0; the 2^-10 asserts of least_squares_2d,
+     batched_matmul_ckks, fft and bfft; op and sum_elems within 1e-3,
+     batch_matmul_ckks within 1e-2; bench_rot within ROT_BOUND, the
+     slot-0 bias of the uncentered key switch; the client workloads
+     within phase 17's bounds, twice_max only finishing), K1–K4 launched
+     by every demo that switches a key; the level sweep (``bench_all``:
+     N=2^15, levels 2..26, one special prime) eager from the CLI and,
+     per level, ``bench_he_all_chained`` from CUDA graphs (one chained
+     step captured, replayed 128 times), with J and R; one TCP pair at
+     --small (``server simple`` as a process, ``client simple`` here once
+     it listens); then K1–K4 (and K6) against their plain versions at the
+     demos' new shapes: the sweep's level 26 (J=27, R=28), ckks_hi at the
+     64×64 matmul's 64 rows, the fft demo's pair rescale of 128 ckks_fft_hi
+     ciphertexts, bfv_matpow's multiply (8 rows) and relinearize (4).
 
 Launch counts are zeroed just before each path and read just after it
 (a CUDA graph's replay counts the kernels its capture recorded); the
 ``kernels`` line reports each kernel's launches on the inference path
 (K5, K6: on its centered run, where the standalone K5 reads 0; P1–P4: on
 the probes' run; P5: on the parallel path of rank 0 of 2) and, under
-``launches_by_path``, on every path (the BFV
-multiply_relin and chain, each paired-prime op in each mode, least
-squares, matmul128, bfft1024x64 and each server workload), its eager
-``ms`` and cold-L2 ``graph_ms``, the library call's eager ms, and under
+``launches_by_path``, on every path (the BFV multiply_relin and chain,
+each paired-prime op in each mode, least squares, matmul128,
+bfft1024x64, each server workload and the demos), its eager ``ms`` and
+cold-L2 ``graph_ms``, the library call's eager ms, and under
 ``cases`` the times of each shape it was compared at.  A ``total`` line
 gives the run's seconds.  The last line is
 {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -151,7 +170,11 @@ reduction to compare two checkouts.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -174,8 +197,11 @@ from hetpu_torch.core.keys import KeyGenerator
 from hetpu_torch.core.modular import from_u32, shoup_companion, to_u32
 from hetpu_torch.core.ntt import (build_tables, ntt_fwd, ntt_fwd_mont,
                                   ntt_fwd_plain, ntt_inv, ntt_inv_plain)
-from hetpu_torch.core.params import preset
+from hetpu_torch.core.params import chain_sweep, preset
 from hetpu_torch.core.rns import fbc_apply
+from hetpu_torch.demos.__main__ import main as demos_main
+from hetpu_torch.demos.math_operations import bench_he_all_chained
+from hetpu_torch.demos.offload_demos import CLIENT_DEMOS, _params_for
 from hetpu_torch import parallel, probes
 from hetpu_torch.fft import bfft, bit_reverse_order
 from hetpu_torch.linalg import BatchedMatrix
@@ -187,6 +213,7 @@ from hetpu_torch.probes import copy as copy_probe
 from hetpu_torch.probes import dot, kernel_parts, overhead2
 from hetpu_torch.runtime import native
 from hetpu_torch.session import Session
+from hetpu_torch.utils import keycache
 
 GOLD = Path(__file__).resolve().parent / "tests" / "golden"
 B = 8
@@ -679,7 +706,7 @@ APP_SHAPES = {"dhi": ("ckks_deep_hi", 1), "deep": ("ckks_deep", 1),
               "fft64": ("ckks_fft", 64)}
 
 
-def app_kernel_cases(rng) -> dict:
+def app_kernel_cases(rng, shapes=APP_SHAPES) -> dict:
     """K1–K4 and K6 at the top-level shapes of the application paths:
     ckks_deep_hi (N=2^15, 25 data primes, 4 special, J=7, R=29, paired
     rescale) at one row, the least-squares fit; ckks_deep (N=2^15, 16 data
@@ -688,10 +715,12 @@ def app_kernel_cases(rng) -> dict:
     in-slot FFT of 64 ciphertexts.  K1: the decompose INTT and the forward
     NTT over the data primes, the forward NTT over the key basis, the
     mod-down INTT of the specials; K2 and the K6 lift; K3 and K6 for the
-    mod-down, the fused rescale tail and, at g=2, the pair rescale; K4."""
+    mod-down, the fused rescale tail and, at g=2, the pair rescale; K4.
+    ``shapes``: tag → (preset name or HeParams, rows)."""
     out = {}
-    for tag, (name, rows) in APP_SHAPES.items():
-        ctx = Context(preset(name))
+    for tag, (params, rows) in shapes.items():
+        name = params if isinstance(params, str) else tag
+        ctx = Context(preset(params) if isinstance(params, str) else params)
         lvl = ctx.num_data - 1
         n = ctx.params.poly_degree
         ks, tabs = ctx.keyswitch_plan(lvl), ctx.tables(lvl)
@@ -1378,41 +1407,55 @@ class Tap:
         return frame
 
 
+# each client workload's bound (kind, bound, source): phase 17 holds the
+# whole decrypted result to it, phase 20 the values the CLI prints
+CLIENT_BOUNDS = {
+    "simple": ("abs", 1e-3, "tests/test_offload.py:93 atol"),
+    "batch_matmul": ("abs", 1e-2, "tests/test_offload.py:103 atol"),
+    "inv": ("rel", 5e-3, "tests/test_offload.py:111 rtol"),
+    "inv_sqrt_twice": ("rel", 5e-3, "tests/test_math.py:35 rtol, the same "
+                       "inputs, guess and iterations"),
+    "abs": ("rel", 1e-2, "tests/test_math.py:49 rtol, the same inputs, "
+            "guess and iterations"),
+    "twice_max": ("rel_max", 2e-2, "tests/test_math.py:66 rtol = atol, on "
+                  "its inputs (the demo's leave the Newton basin)"),
+    "fft": ("abs", 1e-3, "tests/test_fft.py:46 atol"),
+}
+
+
+def error(kind: str, got, want) -> float:
+    """The error of ``got`` against ``want`` that a bound of ``kind``
+    holds: absolute, relative, or relative to 1 + |want|."""
+    got, want = np.asarray(got), np.asarray(want)
+    if kind == "abs":
+        return float(np.abs(got - want).max())
+    if kind == "rel":
+        return float(np.abs(got / want - 1).max())
+    return float((np.abs(got - want) / (1 + np.abs(want))).max())
+
+
 def demo_workload(name: str, slots: int, small: bool):
     """hetpu/demos/offload_demos.py's inputs for one client workload (a
-    fresh rng(0) each, :21-70): (client method arguments, check of the
-    decrypted result → (error, bound, bound's source))."""
+    fresh rng(0) each, :21-70): (client method arguments, the expected
+    result, and how the decrypted result maps onto it)."""
     rng = np.random.default_rng(0)
     if name == "simple":
         x1, x2 = rng.uniform(-1, 1, slots), rng.uniform(-1, 1, slots)
-        return (x1, x2), lambda got: (
-            float(np.abs(got.real - x1 * x2).max()), 1e-3,
-            "tests/test_offload.py:93 atol")
+        return (x1, x2), x1 * x2, lambda got: got.real
     if name == "batch_matmul":
         a = rng.uniform(-1, 1, (5, 5, slots))
         b = rng.uniform(-1, 1, (5, 5, slots))
-        want = np.einsum("ikb,kjb->ijb", a, b)
-        return (a, b), lambda got: (
-            float(np.abs(got.real[:, :, :slots] - want).max()), 1e-2,
-            "tests/test_offload.py:103 atol")
+        return ((a, b), np.einsum("ikb,kjb->ijb", a, b),
+                lambda got: got.real[:, :, :slots])
     if name == "inv":
         x = rng.uniform(0.5, 1.5, slots)
-        return (x, 0.8, 5), lambda got: (
-            float(np.abs(got.real * x - 1).max()), 5e-3,
-            "tests/test_offload.py:111 rtol")
+        return (x, 0.8, 5), 1 / x, lambda got: got.real
     if name == "inv_sqrt_twice":
         x = rng.uniform(0.4, 0.7, slots)
-        want = 1 / np.sqrt(2 * x)
-        return (x, 1.0, 4), lambda got: (
-            float(np.abs(got.real / want - 1).max()), 5e-3,
-            "tests/test_math.py:35 rtol, the same inputs, guess and "
-            "iterations")
+        return (x, 1.0, 4), 1 / np.sqrt(2 * x), lambda got: got.real
     if name == "abs":
         x = rng.uniform(0.5, 1.0, slots) * rng.choice([-1, 1], slots)
-        return (x, 1.0, 4), lambda got: (
-            float(np.abs(got.real / np.abs(x) - 1).max()), 1e-2,
-            "tests/test_math.py:49 rtol, the same inputs, guess and "
-            "iterations")
+        return (x, 1.0, 4), np.abs(x), lambda got: got.real
     if name == "twice_max":
         # the demo draws x1, x2 from U(-1, 1): |x1 - x2| then leaves the
         # |·| Newton basin |x1 - x2| < sqrt(1.5)/guess (he_math.h:9-15) in
@@ -1423,29 +1466,10 @@ def demo_workload(name: str, slots: int, small: bool):
         base = rng.uniform(-0.5, 0.5, slots)
         diff = rng.uniform(0.6, 1.0, slots) * rng.choice([-1, 1], slots)
         x1, x2 = base + diff / 2, base - diff / 2
-        want = 2 * np.maximum(x1, x2)
-        return (x1, x2, 1.0, 4), lambda got: (
-            float((np.abs(got.real - want) / (1 + np.abs(want))).max()),
-            2e-2, "tests/test_math.py:66 rtol = atol, on its inputs (the "
-            "demo's leave the Newton basin)")
+        return (x1, x2, 1.0, 4), 2 * np.maximum(x1, x2), lambda got: got.real
     n = 8 if small else 32
     sig = rng.uniform(-1, 1, n) + 1j * rng.uniform(-1, 1, n)
-    return (sig,), lambda got: (
-        float(np.abs(got - np.fft.fft(sig)).max()), 1e-3,
-        "tests/test_fft.py:46 atol")
-
-
-SERVER_WORKLOADS = ("simple", "batch_matmul", "inv", "inv_sqrt_twice", "abs",
-                    "twice_max", "fft")
-
-
-def server_preset(name: str, small: bool) -> str:
-    """hetpu/demos/offload_demos.py:15-20 (``_params_for``)."""
-    if name in ("inv", "inv_sqrt_twice", "abs", "twice_max"):
-        return "test_deep" if small else "ckks_deep"
-    if name == "fft":
-        return "test_deep" if small else "ckks_fft"
-    return "test_tiny" if small else "ckks_small"
+    return (sig,), np.fft.fft(sig), lambda got: got
 
 
 def _rookie(client, name, args):
@@ -1485,19 +1509,20 @@ def phase_server(smi: str) -> dict:
     within its bound; then at the --small presets, the card server's reply
     frames equal the CPU server's on the same request frames."""
     clients, out = {}, {}
-    for name in SERVER_WORKLOADS:
-        pname = server_preset(name, False)
+    for name in CLIENT_DEMOS:
+        pname = _params_for(name, False)
         t0 = time.perf_counter()
         if pname not in clients:
             clients[pname] = Client(pname, galois_steps=[1])
         client = clients[pname]
         setup = time.perf_counter() - t0
-        args, check = demo_workload(name, client.sess.slots, False)
+        args, want, as_want = demo_workload(name, client.sess.slots, False)
         t0 = time.perf_counter()
         (got, kind, _), launches = _counted(lambda: _rookie(client, name,
                                                             args))
         seconds = time.perf_counter() - t0
-        err, bound, why = check(got)
+        how, bound, why = CLIENT_BOUNDS[name]
+        err = error(how, as_want(got), want)
         if not (np.isfinite(err) and err < bound):
             raise AssertionError(f"server {name}: error {err} (bound {bound},"
                                  f" {why})")
@@ -1513,12 +1538,12 @@ def phase_server(smi: str) -> dict:
     # the request frames the card's server received, served on the CPU
     t0 = time.perf_counter()
     small = {}
-    for name in SERVER_WORKLOADS:
-        pname = server_preset(name, True)
+    for name in CLIENT_DEMOS:
+        pname = _params_for(name, True)
         if pname not in small:
             small[pname] = Client(pname, galois_steps=[1])
         client = small[pname]
-        args, _ = demo_workload(name, client.sess.slots, True)
+        args, _, _ = demo_workload(name, client.sess.slots, True)
         _, _, tap = _rookie(client, name, args)
         header, sess, cts = recv_request(Wire(tap.received), device="cpu")
         cpu = Wire()
@@ -1526,7 +1551,7 @@ def phase_server(smi: str) -> dict:
         if tap.sent != cpu.sent:
             raise AssertionError(f"server {name}: card reply frames differ "
                                  "from the CPU's")
-    log("server_small_bytes", workloads=list(SERVER_WORKLOADS),
+    log("server_small_bytes", workloads=list(CLIENT_DEMOS),
         presets=sorted(small), equal=True,
         seconds=round(time.perf_counter() - t0, 3))
     return out
@@ -1666,6 +1691,300 @@ def phase_host_cost(rng, smi: str) -> None:
                  lambda: fused_ntt.ntt_fwd_centered_fbc(uc, plan, dtc)}
     log("host_cost", host_us_per_call={k: host_us(fn)
                                        for k, fn in calls.items()}, card=smi)
+
+
+# ----------------------------------------------------------------------
+# the demos CLI at full size (phase 20)
+# ----------------------------------------------------------------------
+
+ROOT = Path(__file__).resolve().parent
+DEMO_KEYS = ROOT / "build" / "chip_smoke_keys"
+DEMO_ERR = 2 ** -10            # hetpu/demos/{matrix_operations,fft}.py asserts
+SWEEP_N, SWEEP_LO, SWEEP_HI = 1 << 15, 2, 26    # math_operations.cpp:614-619
+CHAIN_K, CHAIN_REPS = 64, 2    # hetpu's bench_he_all_chained defaults
+TCP_TIMEOUT_S = 300
+# every demo but the level sweep, at full size: (suite, name) → preset
+DEMO_PRESETS = {
+    **{("matrix_operations", n): p for n, p in (
+        ("op", "ckks_small"), ("elemwise_square", "bfv_small"),
+        ("matmul", "bfv_matpow"), ("batch_matmul_bfv", "bfv_batch"),
+        ("batch_matmul_ckks", "ckks_small"), ("matpow", "bfv_matpow"),
+        ("sum_elems", "ckks_small"), ("least_squares_2d", "ckks_deep_hi"),
+        ("batched_matmul_ckks", "ckks_hi"))},
+    **{("bfv_operations", n): p for n, p in (
+        ("elemwise_square", "bfv_small"), ("batch_matmul_bfv", "bfv_batch"),
+        ("matpow_bfv", "bfv_matpow"))},
+    ("math_operations", "bench_rot"): "ckks_deep",
+    ("fft", "fft"): "ckks_fft_hi",
+    ("fft", "bfft"): "ckks_fft_hi",
+    **{("client_server_rookie", w): _params_for(w, False)
+       for w in CLIENT_DEMOS},
+}
+# bench_rot's bound.  hetpu's default key switch lifts uncentered digits
+# (d_j in [0, Q_j), plus the mod-up's u·Q_j, u < α): their mean ~2·Q_j
+# times the key's error e_j, over P, is added to every rotation, and its
+# Σ X^k factor peaks at slot 0 (|2/(1-ζ)| ≈ 2N/π), the first value
+# bench_rot prints.  At ckks_deep (N=2^15, scale 2^30, α=4, J=4) a
+# component's σ is sqrt(Σ (2Q_j/P)^2)·(2N/π)·3.2·sqrt(N/2)/2^30 = 2.6e-3
+# (CPU runs of the port and of hetpu agree, PERF.md); 2e-2 is 7.7σ
+ROT_BOUND = ("abs", 2e-2, "7.7σ of the slot-0 bias of hetpu's uncentered "
+             "key switch at ckks_deep (σ 2.6e-3)")
+# what a CKKS demo prints, held against what it expects: (kind, bound,
+# source); twice_max's CLI inputs leave the Newton basin (CLIENT_BOUNDS),
+# so its run is only checked to finish
+DEMO_BOUNDS = {
+    ("matrix_operations", "op"): CLIENT_BOUNDS["simple"],
+    ("matrix_operations", "sum_elems"): CLIENT_BOUNDS["simple"],
+    ("math_operations", "bench_rot"): ROT_BOUND,
+    ("matrix_operations", "batch_matmul_ckks"): CLIENT_BOUNDS["batch_matmul"],
+    **{k: ("abs", DEMO_ERR, "the demo's assert") for k in (
+        ("matrix_operations", "least_squares_2d"),
+        ("matrix_operations", "batched_matmul_ckks"), ("fft", "fft"),
+        ("fft", "bfft"))},
+    **{("client_server_rookie", w): CLIENT_BOUNDS[w]
+       for w in CLIENT_DEMOS if w != "twice_max"},
+}
+# the demos that switch no key: the coefficient FFT (plaintext multiplies
+# and rescales)
+NO_KEYSWITCH = {("fft", "fft"), ("client_server_rookie", "fft")}
+K1_K4 = ("ntt", "ntt_fwd_lifted", "ntt_fwd_fbc", "inner_product")
+NUMBER = re.compile(r"[-+]?(?:\d+\.\d*|\.\d+|\d+)(?:[eE][-+]?\d+)?j?")
+
+
+def printed_values(s: str) -> np.ndarray:
+    """The numbers numpy printed in ``s``: complex where an imaginary part
+    (``...j``) follows a real one."""
+    if re.search(r"nan|inf", s):
+        raise AssertionError(f"a non-finite value was printed: {s!r}")
+    vals = []
+    for tok in NUMBER.findall(s):
+        if tok.endswith("j"):
+            vals[-1] += 1j * float(tok[:-1])
+        else:
+            vals.append(complex(float(tok)))
+    return np.array(vals)
+
+
+def demo_values(what: str, text: str, bound) -> dict:
+    """What a demo printed, checked (each check raises): its Timer lines
+    (label → seconds); BFV's ``exact:`` flags, all True, and noise budgets,
+    all > 0; CKKS's error (its ``max err``, or else its printed values
+    against the expected ones that follow them) within ``bound`` (kind,
+    bound, source; None: only finished)."""
+    out = {"timers": {k: float(v) for k, v in re.findall(
+        r"^(.+?): (-?\d+\.\d+) s$", text, re.M)}}
+    exact = re.findall(r"exact: (\w+)", text)
+    budgets = [int(b) for b in re.findall(r"noise budget [^:]*: (-?\d+) bits",
+                                          text)]
+    if exact or budgets:
+        if not (exact and all(e == "True" for e in exact) and budgets
+                and min(budgets) > 0):
+            raise AssertionError(f"{what}: exact {exact}, noise budgets "
+                                 f"{budgets}:\n{text}")
+        return {**out, "exact": exact, "noise_budgets": budgets}
+    if bound is None:
+        return out
+    kind, limit, source = bound
+    max_err = re.findall(r"max err = (\S+)", text)
+    if max_err:
+        err = float(printed_values(max_err[-1])[0].real)
+    else:
+        head, tail = text.split("expected", 1)
+        got = printed_values(head.rsplit("=", 1)[1])
+        want = printed_values(re.match(r"\s*=\s*(\[[^\]]*\]|\S+)",
+                                       tail).group(1))
+        if got.shape != want.shape or not got.size:
+            raise AssertionError(f"{what}: printed {got}, expected {want}")
+        err = error(kind, got, want)
+    if not (np.isfinite(err) and err < limit):
+        raise AssertionError(f"{what}: error {err} (bound {limit}, {source})"
+                             f":\n{text}")
+    return {**out, "error": err, "error_kind": kind, "bound": limit,
+            "bound_source": source}
+
+
+def run_demo(argv: list) -> tuple[str, float, dict, int]:
+    """``python -m hetpu_torch.demos <argv>`` in this process, on the card,
+    launch counts zeroed just before it: (what it printed, seconds,
+    launches, peak device bytes).  A failing demo's output goes to stderr
+    before the error is raised."""
+    buf = io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc, launches = _counted(lambda: demos_main(argv))
+    except BaseException:
+        print(buf.getvalue(), file=sys.stderr, flush=True)
+        raise
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"demo {argv}: return code {rc}\n"
+                             f"{buf.getvalue()}")
+    return buf.getvalue(), seconds, launches, torch.cuda.max_memory_allocated()
+
+
+def _printed_lines(text: str) -> list:
+    return [ln.rstrip() for ln in text.splitlines()
+            if ln.strip() and not re.match(r"^.+?: -?\d+\.\d+ s$", ln)]
+
+
+def demo_tcp(smi: str) -> dict:
+    """One TCP pair at --small: ``server simple`` as a process on the card,
+    then ``client simple`` here once the server has printed its listening
+    line (hetpu's client connects without retries); the server must name
+    the workload it served.  Stops the server on every path."""
+    srv = subprocess.Popen(
+        [sys.executable, "-m", "hetpu_torch.demos", "server", "simple",
+         "--small"], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    watchdog = threading.Timer(TCP_TIMEOUT_S, srv.kill)
+    watchdog.start()
+    try:
+        head = []
+        for line in srv.stdout:
+            head.append(line)
+            if line.startswith("listening"):
+                break
+        else:
+            raise AssertionError("tcp: the server ended before it listened:\n"
+                                 + "".join(head))
+        text, seconds, launches, _ = run_demo(["client", "simple", "--small"])
+        tail = srv.stdout.read()
+        rc = srv.wait()
+    finally:
+        watchdog.cancel()
+        if srv.poll() is None:
+            srv.kill()
+            srv.wait()
+        srv.stdout.close()
+    if rc != 0 or "served workload 'simple'" not in tail:
+        raise AssertionError(f"tcp: server rc {rc}:\n{''.join(head)}{tail}")
+    values = demo_values("tcp client simple", text, CLIENT_BOUNDS["simple"])
+    log("demo", suite="client/server", name="simple", preset="test_tiny",
+        transport="tcp", seconds=seconds, **values, launches=launches,
+        server_printed=_printed_lines("".join(head) + tail), card=smi)
+    return launches
+
+
+def demo_sweep(text: str, smi: str) -> None:
+    """The CLI's eager level sweep (every level 2..26 printed, six ops
+    each), then bench_he_all_chained at each level on a session of its
+    own: one line a level with J, R and both times."""
+    eager = {int(lv): {k: float(v) for k, v in re.findall(
+        r"(\w+)=(-?\d+\.\d+)ms", row)}
+        for lv, row in re.findall(r"^levels=\s*(\d+)\s+(.*)$", text, re.M)}
+    if sorted(eager) != list(range(SWEEP_LO, SWEEP_HI + 1)) \
+            or any(len(v) != 6 for v in eager.values()):
+        raise AssertionError(f"bench_all printed levels {sorted(eager)}:\n"
+                             f"{text}")
+    for lv, params in chain_sweep(SWEEP_N, SWEEP_LO, SWEEP_HI):
+        t0 = time.perf_counter()
+        sess = Session.create(params, galois_steps=[1])
+        ks = sess.ctx.keyswitch_plan(sess.ctx.num_data - 1)
+        setup = time.perf_counter() - t0
+        chained = bench_he_all_chained(sess, CHAIN_K, CHAIN_REPS)
+        log("level_sweep", n=SWEEP_N, levels=lv, J=ks.num_digits,
+            R=len(ks.basis_tables.primes), eager_ms=eager[lv],
+            chained_ms={k: v * 1e3 for k, v in chained.items()},
+            chained_steps=CHAIN_K * CHAIN_REPS, setup_seconds=setup,
+            card=smi)
+        del sess, ks
+
+
+def demo_kernel_cases(rng) -> dict:
+    """K1–K4 (with K6 as phase 4 has it) at the shapes of the full-size
+    demos that no earlier phase timed: the sweep's level 26 at one row
+    (N=2^15, 27 data primes, one special: α=1, J=27, R=28) and ckks_hi's
+    paired-prime path at the batched matmul's 64 rows (N=2^13, J=3, R=8);
+    the fft demo's pair rescale of 128 ckks_fft_hi ciphertexts (K1 INTT
+    [128,2,2,N], K3 [128,2,2,N]→[128,2,21,N]); bfv_matpow's multiply at
+    the 8 rows of a 2×2 square (K1 over Q and over its 9-prime auxiliary
+    basis) and its relinearize at 4 (K2, K3, K4)."""
+    top = next(p for _, p in chain_sweep(SWEEP_N, SWEEP_HI, SWEEP_HI))
+    out = app_kernel_cases(rng, {"sweep26": (top, 1),
+                                 "hi13": ("ckks_hi", 64)})
+    ctx = Context(preset("ckks_fft_hi"))
+    grs = ctx.group_rescale_plan(ctx.num_data - 1)
+    src, n = grs.src_tables.primes, ctx.params.poly_degree
+    out["ntt_inv_fft128_pair"] = ntt_compare(
+        "ntt_inv pair ckks_fft_hi x128", residues(rng, (128, 2, 2, n), src),
+        grs.src_tables, dict(strip_mont=True, extra=grs.fbc.inv_punit))
+    out["ntt_fwd_fbc_fft128_pair"] = fbc_compare(
+        "ntt_fwd_fbc pair ckks_fft_hi x128",
+        residues(rng, (128, 2, 2, n), src), grs.fbc, grs.dst_tables)
+    del ctx, grs
+    bctx = Context(preset("bfv_matpow"))
+    top = bctx.num_data - 1
+    tq = bctx.tables(top)
+    tb = BfvScheme(bctx)._lvl(top)["tables_B"]
+    L, K, n = top + 1, len(tb.primes), bctx.params.poly_degree
+    k1 = {"ntt_inv_matpow_q2": ((8, 2, L, n), tq, dict(strip_mont=True)),
+          "ntt_inv_matpow_q3": ((8, 3, L, n), tq, dict(strip_mont=True)),
+          "ntt_fwd_matpow_b2": ((8, 2, K, n), tb, dict(to_mont=True)),
+          "ntt_inv_matpow_b3": ((8, 3, K, n), tb, dict(strip_mont=True))}
+    for case, (shape, t, kw) in k1.items():
+        out[case] = ntt_compare(f"{case} bfv_matpow",
+                                residues(rng, shape, t.primes), t, kw)
+    ks = bctx.keyswitch_plan(top)
+    out["ntt_fwd_lifted_matpow"] = lift_compare(
+        "ntt_fwd_lifted bfv_matpow x4", residues(rng, (4, L, n), tq.primes),
+        ks, top)
+    md = ks.moddown.src_tables.primes
+    out["ntt_fwd_fbc_matpow_moddown"] = fbc_compare(
+        "ntt_fwd_fbc moddown bfv_matpow x4", residues(rng, (4, 2, len(md), n),
+                                                      md),
+        ks.moddown.fbc, ks.moddown.dst_tables)
+    out["inner_product_matpow"] = ip_compare("inner_product bfv_matpow x4",
+                                             rng, ks, 4)
+    for name, r in out.items():
+        log("kernel_vs_plain", kernel=name, **r)
+    return out
+
+
+def phase_demos(rng, smi: str) -> tuple[dict, dict]:
+    """Every suite and name of ``python -m hetpu_torch.demos`` at full size
+    on the card, in this process through the CLI's ``main``, from a fresh
+    key cache under build/ (``keycache.CACHE_DIR``, which HETPU_KEY_CACHE
+    sets at import: keygen on the card, no key of an earlier tree
+    loaded): one line a demo with its preset, seconds, Timer lines,
+    checked values, launches and peak device memory; the level sweep
+    (eager from the CLI, chained from CUDA graphs); one TCP pair; then
+    K1–K4 at the demos' new shapes.  Returns (the kernel cases' times, the
+    launches summed over the demos' runs)."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(DEMO_KEYS, ignore_errors=True)
+    keycache.CACHE_DIR = DEMO_KEYS
+    total = dict.fromkeys(cuda_lib.launches, 0)
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    for (suite, name), pname in DEMO_PRESETS.items():
+        text, seconds, launches, peak = run_demo([suite, name])
+        values = demo_values(f"demo {suite} {name}", text,
+                             DEMO_BOUNDS.get((suite, name)))
+        _need(launches, ("ntt",) if (suite, name) in NO_KEYSWITCH else K1_K4,
+              f"demo {suite} {name}",
+              absent=("ntt_fwd_centered", "centered_fbc"))
+        log("demo", suite=suite, name=name, preset=pname, seconds=seconds,
+            **values, printed=_printed_lines(text), launches=launches,
+            peak_device_bytes=peak, card=smi)
+        add(launches)
+    text, seconds, launches, peak = run_demo(["math_operations", "bench_all"])
+    _need(launches, K1_K4, "demo math_operations bench_all")
+    log("demo", suite="math_operations", name="bench_all",
+        preset=f"chain_sweep N={SWEEP_N} levels {SWEEP_LO}..{SWEEP_HI}",
+        seconds=seconds, launches=launches, peak_device_bytes=peak, card=smi)
+    add(launches)
+    demo_sweep(text, smi)
+    add(demo_tcp(smi))
+    _need(total, K1_K4, "the demos")
+    timings = demo_kernel_cases(rng)
+    log("demos", seconds=round(time.perf_counter() - t_phase, 3),
+        launches=total, key_cache=str(DEMO_KEYS.relative_to(ROOT)), card=smi)
+    return timings, total
 
 
 # ----------------------------------------------------------------------
@@ -1967,9 +2286,9 @@ def phase_parallel(smi: str) -> tuple[dict, dict]:
 # name, source, replaced TPU kernel, timing cases (first = the row's
 # times; the others are in the kernel_vs_plain lines), path of the launches
 PARTS = tuple("plane_parts_" + v for v in kernel_parts.VARIANTS)
-APP_TAGS = tuple(APP_SHAPES)
+APP_TAGS = tuple(APP_SHAPES) + ("sweep26", "hi13")
 APP_CONV = tuple(f"{t}_{p}" for t in APP_TAGS for p in ("moddown", "tail")) \
-    + ("dhi_pair",)
+    + ("dhi_pair", "hi13_pair")
 KERNELS = [
     ("ntt", "hetpu_torch/csrc/ntt.cu", "hetpu/core/mxu_ntt.py:710",
      ("ntt_inv", "ntt_fwd", "ntt_inv_rescale", "ntt_inv_moddown",
@@ -1977,19 +2296,24 @@ KERNELS = [
       "ntt_inv_bfv_b3", "ntt_inv_bfv_t", "ntt_inv_pair", "ntt_inv_hi_tail")
      + tuple(f"{k}_{t}{x}" for t in APP_TAGS for k, x in (
          ("ntt_inv", ""), ("ntt_fwd", ""), ("ntt_fwd", "_basis"),
-         ("ntt_inv", "_moddown"))),
+         ("ntt_inv", "_moddown")))
+     + ("ntt_inv_fft128_pair", "ntt_inv_matpow_q2", "ntt_inv_matpow_q3",
+        "ntt_fwd_matpow_b2", "ntt_inv_matpow_b3"),
      "default"),
     ("ntt_fwd_lifted", "hetpu_torch/csrc/fused_ntt.cu",
      "hetpu/core/mxu_ntt.py:816", ("ntt_fwd_lifted", "ntt_fwd_lifted_bfv")
-     + tuple("ntt_fwd_lifted_" + t for t in APP_TAGS), "default"),
+     + tuple("ntt_fwd_lifted_" + t for t in APP_TAGS + ("matpow",)),
+     "default"),
     ("ntt_fwd_fbc", "hetpu_torch/csrc/fused_ntt.cu",
      "hetpu/core/mxu_ntt.py:816",
      ("ntt_fwd_fbc", "ntt_fwd_fbc_moddown", "ntt_fwd_fbc_ties",
       "ntt_fwd_fbc_bfv_moddown", "ntt_fwd_fbc_pair", "ntt_fwd_fbc_hi_tail")
-     + tuple("ntt_fwd_fbc_" + c for c in APP_CONV), "default"),
+     + tuple("ntt_fwd_fbc_" + c for c in APP_CONV
+             + ("fft128_pair", "matpow_moddown")), "default"),
     ("inner_product", "hetpu_torch/csrc/ip_kernel.cu",
      "hetpu/core/ip_kernel.py:75", ("inner_product", "inner_product_bfv")
-     + tuple("inner_product_" + t for t in APP_TAGS), "default"),
+     + tuple("inner_product_" + t for t in APP_TAGS + ("matpow",)),
+     "default"),
     ("ntt_fwd_centered", "hetpu_torch/csrc/fused_ntt.cu",
      "hetpu/core/mxu_fbc.py:214",
      ("ntt_fwd_centered_tail", "ntt_fwd_centered_moddown",
@@ -2048,13 +2372,15 @@ def main() -> int:
     app_launches = {"least_squares": phase_least_squares(smi),
                     "matmul128": phase_matmul128(smi),
                     "bfft1024x64": phase_bfft(smi), **phase_server(smi)}
+    demo_timings, demo_launches = phase_demos(rng, smi)
+    timings.update(demo_timings)
     timings.update(phase_probe_kernels(rng))
     timings.update(par_timings)
     launches = {"default": default["launches"],
                 "centered": centered["launches"],
                 "probes": phase_probes(sess, smi),
                 **bfv_launches, **hi_launches, **app_launches,
-                "parallel": par_launches}
+                "demos": demo_launches, "parallel": par_launches}
     phase_host_cost(rng, smi)
     log("total", seconds=round(time.perf_counter() - start, 3))
     rows = []

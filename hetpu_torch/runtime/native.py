@@ -132,17 +132,22 @@ class Transport:
             self.sock.close()
 
 
-def serve(port_lo=PORT_LO, port_hi=PORT_HI):
+def serve(port_lo=PORT_LO, port_hi=PORT_HI, on_listen=None):
     """Bind/listen/accept one connection (reference setup_server).
-    Returns (transport, port)."""
+    ``on_listen(port)`` is called once the socket listens, before the
+    accept.  Returns (transport, port)."""
     lib = _load()
     if lib:
         port = ctypes.c_int(0)
         lfd = lib.hetpu_listen(port_lo, port_hi, ctypes.byref(port))
         if lfd < 0:
             raise IOError("no free port in range")
-        cfd = lib.hetpu_accept(lfd)
-        lib.hetpu_close(lfd)
+        try:
+            if on_listen is not None:
+                on_listen(port.value)
+            cfd = lib.hetpu_accept(lfd)
+        finally:
+            lib.hetpu_close(lfd)
         if cfd < 0:
             raise IOError("accept failed")
         return Transport(fd=cfd), port.value
@@ -155,8 +160,10 @@ def serve(port_lo=PORT_LO, port_hi=PORT_HI):
             continue
     else:
         raise IOError("no free port in range")
-    conn, _ = srv.accept()
-    srv.close()
+    with srv:
+        if on_listen is not None:
+            on_listen(port)
+        conn, _ = srv.accept()
     return Transport(sock=conn), port
 
 

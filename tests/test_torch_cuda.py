@@ -39,6 +39,7 @@ from hetpu_torch.session import Session
 from torch_ties import (TIES_DNUM, TIES_DNUM_CENTERED,
                         TIES_N14_TAIL_CENTERED)
 import torch_parallel_ranks as ranks
+import torch_demo_cases
 
 pytestmark = pytest.mark.cuda
 
@@ -853,3 +854,57 @@ def test_sharded_pipeline_without_mesh():
     prod = sess.ev.multiply_relin_rescale(cts[0], cts[1], sess.rk)
     want = sess.ev.add(prod, sess.ev.rotate(prod, 1, sess.gk))
     assert len(got) == 1 and torch.equal(got[0].data, want.data)
+
+
+# ----------------------------------------------------------------------
+# the demos CLI (python -m hetpu_torch.demos) on the card
+# ----------------------------------------------------------------------
+
+CARD_DEMOS = ([("matrix_operations", n) for n in (
+    "op", "elemwise_square", "matmul", "batch_matmul_bfv",
+    "batch_matmul_ckks", "matpow", "sum_elems", "least_squares_2d",
+    "batched_matmul_ckks")]
+    + [("fft", "fft"), ("fft", "bfft"), ("math_operations", "bench_rot")]
+    + [("client_server_rookie", n) for n in (
+        "simple", "batch_matmul", "inv", "inv_sqrt_twice", "abs",
+        "twice_max", "fft")])
+
+
+@pytest.mark.parametrize("suite,name", CARD_DEMOS,
+                         ids=[f"{s}-{n}" for s, n in CARD_DEMOS])
+def test_demo_card_equals_cpu(dev, suite, name, tmp_path, monkeypatch):
+    """Each demo at --small on the card prints what its CPU run prints
+    under the same seeds, each from an empty key cache: BFV's decrypts
+    and noise budgets equal, CKKS's decoded values within 1e-9."""
+    from hetpu_torch.demos.__main__ import main
+    from hetpu_torch.utils import keycache
+    argv = [suite, name, "--small"]
+    monkeypatch.setattr(keycache, "CACHE_DIR", tmp_path / "card")
+    cuda_lib.reset_launches()
+    card = torch_demo_cases.run(main, argv, f"{suite}.{name}")
+    assert cuda_lib.launches["ntt"] > 0
+    monkeypatch.setattr(keycache, "CACHE_DIR", tmp_path / "cpu")
+    cpu = torch_demo_cases.run(main, argv + ["--cpu"], f"{suite}.{name}")
+    torch_demo_cases.assert_same_printed(card, cpu)
+
+
+def test_chained_step_graph_equals_eager(dev):
+    """Each op's chained step replayed from its CUDA graph leaves the tag
+    that the same number of eager steps leaves (the capture's warm-up is
+    one step).  Three steps in all: a linear op's tag alternates between
+    its first fold and zero, so an even count would leave zeros."""
+    from hetpu_torch import probes
+    from hetpu_torch.demos import math_operations as mo
+    sess = Session.create("test_tiny", seed=b"\x46" * 32, galois_steps=[1])
+    for name, (fn, data) in mo.chained_cases(sess).items():
+        x0 = data.clone()
+        tag = torch.zeros_like(x0)
+        graph = probes.Captured(mo.chain_step(fn, x0, tag))
+        for _ in range(2):
+            graph.replay()
+        eager = torch.zeros_like(x0)
+        step = mo.chain_step(fn, x0, eager)
+        for _ in range(3):
+            step()
+        assert torch.equal(tag, eager), name
+        assert eager.any(), name

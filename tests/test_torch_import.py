@@ -33,6 +33,8 @@ from hetpu_torch.core import cuda_lib, fused_ntt, ip_kernel, serial
 from hetpu_torch.core.context import Context
 from hetpu_torch.core.ntt import ntt_fwd, ntt_inv
 from hetpu_torch.core.params import preset
+from hetpu_torch.demos import (fft as fft_demos, math_operations,
+                               matrix_operations, offload_demos)
 from hetpu_torch.offload import pipeline, recv_request
 from hetpu_torch.offload.client import Client
 from hetpu_torch.offload.server import serve_once
@@ -64,6 +66,11 @@ def test_import_pulls_no_jax_and_builds_nothing(tmp_path):
         import hetpu_torch.offload.client
         from hetpu_torch.runtime import native
         import hetpu_torch.parallel.peer, hetpu_torch.parallel.tp
+        import hetpu_torch.demos, hetpu_torch.demos.__main__
+        import hetpu_torch.demos.matrix_operations
+        import hetpu_torch.demos.bfv_operations
+        import hetpu_torch.demos.math_operations, hetpu_torch.demos.fft
+        import hetpu_torch.demos.offload_demos
         from hetpu_torch import parallel
         from hetpu_torch.parallel import cp
         import torch
@@ -203,15 +210,19 @@ def test_entry_points_default_to_the_card():
     """Session.create, Session.from_wire, BfvSession.create, Context,
     convert.*, the serial loaders that take no context, cached_session and
     the offload entry points (recv_request, serve_once, Client, the
-    pipeline's clients) default to device="cuda"; without a card they
-    raise instead of falling back."""
+    pipeline's clients) and every demo default to device="cuda"; without a
+    card they raise instead of falling back."""
+    demos = [*matrix_operations.DEMOS.values(),
+             *math_operations.DEMOS.values(), *fft_demos.DEMOS.values(),
+             offload_demos.demo_client, offload_demos.demo_server,
+             offload_demos.demo_rookie]
     for fn in (Session.create, Session.from_wire, Context.__init__,
                BfvSession.create, convert.secret_key, convert.public_key,
                convert.kswitch_key, convert.relin_keys, convert.galois_keys,
                convert.ciphertext, convert.plaintext, serial.load_public_key,
                serial.load_plaintext, cached_session, recv_request,
                serve_once, Client.__init__, pipeline.run_client,
-               pipeline.run_client_infer):
+               pipeline.run_client_infer, *demos):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     if torch.cuda.is_available():
         assert Context(preset("test_tiny")).device.type == "cuda"

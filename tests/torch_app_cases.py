@@ -8,10 +8,6 @@ linalg constructors), ``fixed_seeds`` makes both packages draw the same
 sequence of fresh seeds.
 """
 
-import contextlib
-import hashlib
-import itertools
-
 import numpy as np
 import torch
 
@@ -20,24 +16,15 @@ from hetpu_torch import convert
 from hetpu_torch.core import random as port_rnd
 from hetpu_torch.core.modular import to_u32
 
+import torch_demo_cases
+
 torch.set_num_threads(1)
 
 
-@contextlib.contextmanager
 def fixed_seeds(tag: str):
     """Inside the block, ``new_seed`` of both packages returns the same
     sequence (restarted by every block with the same tag)."""
-    counter = itertools.count()
-
-    def new_seed() -> bytes:
-        return hashlib.sha256(f"{tag}:{next(counter)}".encode()).digest()
-
-    saved = ref_rnd.new_seed, port_rnd.new_seed
-    ref_rnd.new_seed = port_rnd.new_seed = new_seed
-    try:
-        yield
-    finally:
-        ref_rnd.new_seed, port_rnd.new_seed = saved
+    return torch_demo_cases.fixed_seeds(tag, (ref_rnd, port_rnd))
 
 
 def encrypt_pair(ref, values, seed: bytes):
