@@ -1558,31 +1558,40 @@ def phase_server(smi: str) -> dict:
 
 
 def phase_probe_kernels(rng) -> dict:
-    """P1–P4 against their plain versions at each probe's own shapes."""
+    """P1–P4 against their plain versions at each probe's own shapes; P1
+    also as GB/s each way per CTA (one CTA a block), P3 as TMAC/s, both
+    from the cold time."""
     out = {}
+
+    def copy_case(name, x, rb, flat, library):
+        r = compare(name, lambda: copy_probe.copy_planes(x, rb, flat),
+                    lambda: copy_probe.copy_planes_plain(x, rb, flat), [x],
+                    library=library)
+        ctas = x.shape[0] // rb * (1 if flat or x.dim() == 3 else x.shape[1])
+        r["ctas"] = ctas
+        r["gbps_per_cta"] = x.numel() * 4 / ctas / (r["graph_ms"] * 1e6)
+        out[name] = r
+
     x = copy_probe.planes_u32((32, 9, 128, 128), device="cuda")
     dst = torch.empty_like(x)
     lib_copy = (lambda: dst.copy_(x), lambda r: r)
-    for name, args in (("copy_planes_rb8", (8, False)),
-                       ("copy_planes_flat_rb8", (8, True))):
-        out[name] = compare(name, lambda: copy_probe.copy_planes(x, *args),
-                            lambda: copy_probe.copy_planes_plain(x, *args),
-                            [x], library=lib_copy)
+    copy_case("copy_planes_rb8", x, 8, False, lib_copy)
+    copy_case("copy_planes_flat_rb8", x, 8, True, lib_copy)
     x4 = copy_probe.planes_u32((1152, 128, 128), device="cuda")
     dst4 = torch.empty_like(x4)
-    out["copy_planes_1152"] = compare(
-        "copy_planes_1152", lambda: copy_probe.copy_planes(x4, 8),
-        lambda: copy_probe.copy_planes_plain(x4, 8), [x4],
-        library=(lambda: dst4.copy_(x4), lambda r: r))
+    copy_case("copy_planes_1152", x4, 8, False,
+              (lambda: dst4.copy_(x4), lambda r: r))
     out["muladd_u32"] = compare(
         "muladd_u32", lambda: overhead2.muladd_u32(x),
         lambda: overhead2.muladd_u32_plain(x), [x])
 
     def dot_case(name, a, b, ppb=1, library=None):
-        out[name] = compare(name, lambda: dot.dot_i8(a, b, ppb),
-                            lambda: dot.dot_i8_plain(a, b), [a, b],
-                            ops=2 * b.shape[0] * a.shape[0] * a.shape[1]
-                            * b.shape[2], library=library)
+        macs = b.shape[0] * a.shape[0] * a.shape[1] * b.shape[2]
+        r = compare(name, lambda: dot.dot_i8(a, b, ppb),
+                    lambda: dot.dot_i8_plain(a, b), [a, b], ops=2 * macs,
+                    library=library)
+        r["tmac_per_s"] = macs / (r["graph_ms"] * 1e-3) / 1e12
+        out[name] = r
 
     # torch._int_mm: the s8×s8 library yardstick (the port never calls it)
     for pname, la, ra in dot.PAIRS:
@@ -1603,7 +1612,7 @@ def phase_probe_kernels(rng) -> dict:
     mm = (lambda: torch._int_mm(w, a2),
           lambda r: r.view(512, 288, 128).permute(1, 0, 2))
     dot_case("dot_i8_288", w, a, 1, library=mm)
-    dot_case("dot_i8_288_ppb8", w, a, 8)
+    dot_case("dot_i8_288_ppb8", w, a, 8, library=mm)
 
     # dot and dot2 issue the products of all 512 rows, as the TPU probe
     # does; the bound counts only those the stored rows 0..127 depend on:
@@ -1614,13 +1623,17 @@ def phase_probe_kernels(rng) -> dict:
     macs = planes * 512 * 512 * 128
     io = {"copy": [xp], "dot": [xp, wp], "dot2": [xp, wp],
           "extract": [xp], "twiddle": [xp, tw, tws], "recomb": [xp]}
+    # copy is the one part a single PyTorch call computes (Tensor.copy_)
+    dstp = torch.empty_like(xp)
     for v in kernel_parts.VARIANTS:
         out["plane_parts_" + v] = compare(
             "plane_parts " + v,
             lambda: kernel_parts.plane_parts(v, xp, wp, tw, tws),
             lambda: kernel_parts.plane_parts_plain(v, xp, wp, tw, tws),
             io[v], ops={"dot": macs // 2, "dot2": 2 * macs + macs // 2}
-            .get(v, 0), plain_graph=v in ("extract", "twiddle", "recomb"))
+            .get(v, 0), plain_graph=v in ("extract", "twiddle", "recomb"),
+            library=(lambda: dstp.copy_(xp), lambda r: r) if v == "copy"
+            else None)
     for v, issued in (("dot", 2 * macs), ("dot2", 4 * macs)):
         out["plane_parts_" + v]["issued_ops_ms"] = \
             issued / INT8_OPS_PER_S * 1e3
@@ -2333,7 +2346,7 @@ KERNELS = [
      "probes"),
     ("muladd_u32", "hetpu_torch/csrc/probes.cu",
      "scripts/probe_overhead2.py:45", ("muladd_u32",), "probes"),
-    ("dot_i8", "hetpu_torch/csrc/probes.cu", "scripts/probe_int8_mxu.py:59",
+    ("dot_i8", "hetpu_torch/csrc/dot_i8.cu", "scripts/probe_int8_mxu.py:59",
      ("dot_i8_288", "dot_i8_288_ppb8", "dot_i8_512", "dot_i8_u8xs8",
       "dot_i8_s8xu8", "dot_i8_s8xs8", "dot_i8_u8xu8"), "probes"),
     ("plane_parts", "hetpu_torch/csrc/probes.cu",
@@ -2349,7 +2362,8 @@ KERNELS = [
 
 CASE_KEYS = ("shape_in", "shape_out", "ms", "graph_ms", "plain_ms",
              "bound_ms", "bound_by", "imul_bound_ms", "library_ms",
-             "library_graph_ms", "exchange_ms")
+             "library_graph_ms", "exchange_ms", "gbps_per_cta",
+             "tmac_per_s")
 
 
 def main() -> int:

@@ -7,21 +7,23 @@
 // P1 `copy_planes` (probe_grid.py `make` :30 and `make_flat` :48,
 // probe_overhead.py `copy_call` :21).  A u32 plane copy; each block copies
 // rb rows of one limb, or rb rows of all L limbs, so the per-block cost can
-// be read as the TPU's per-grid-step cost was.  Blocks run in parallel in
-// no order, so the TPU probe's grid orders and dimension semantics have no
-// counterpart.  Bound: device-memory bytes; 16-byte loads and stores.
+// be read as the TPU's per-grid-step cost was.  One CTA a block; its planes
+// move through a ring of 32 KB shared-memory stages by 1-D bulk copies
+// (TMA): one thread loads (cp.async.bulk into a stage, completing on the
+// stage's full mbarrier), another stores (cp.async.bulk out of the stage,
+// one bulk group a stage) and frees the stage once its store has been read
+// out, so half the ring is in flight each way.  The ring is 192 KB where a
+// block has its SM alone and shrinks to share an SM (copy_stages).  A
+// block's planes are one contiguous run when they are (all limbs, or one
+// limb of L = 1) and rb runs otherwise; small planes fold into one stage.
+// Blocks run in parallel in no order, so the TPU probe's grid orders and
+// dimension semantics have no counterpart.  Bound: device-memory bytes; a
+// lone block reaches ~50 GB/s each way (one SM's bulk copies).
 //
 // P2 `muladd_u32` (probe_overhead2.py `pcall` :45).  x * 2654435761 + 1
 // mod 2^32, elementwise.  Bound: bytes; one 16-byte load and store a thread.
 //
-// P3 `dot_i8` (probe_u8_dot.py `try_pair` :20, probe_pallas_s8.py :14,
-// probe_int8_mxu.py `pl_dot` :59 and `pl_dot8` :93).  out[p] = A @ B[p]
-// with int32 sums, exact, for u8/s8 A and B: mma.sync m16n8k32 on the
-// tensor cores.  A block keeps a 64-row slab of A in shared memory across
-// its planes and stages each plane of B transposed (K contiguous for each
-// column, the layout of the .col operand) with a 4x4 byte transpose.
-// Bound: bytes at the probe's shapes (int32 out is 4x the int8 in);
-// mma.sync without a pipeline reaches a fraction of the wgmma peak.
+// P3 `dot_i8` lives in dot_i8.cu (wgmma, TMA).
 //
 // P4 `plane_parts` (probe_kernel_parts.py `make` :57).  One block per
 // [128, 128] u32 plane (row r, limb l) and one of the probe's six
@@ -38,25 +40,125 @@
 // for dot2.  The bound counts only the products the stored rows depend on
 // (a quarter of one product for dot; the first product and a quarter of
 // the second for dot2), not the 512 rows issued.
+#include "hopper.cuh"
 #include "ntt_common.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------- P1, P2
 
-__global__ void copy_planes_kernel(const uint4* __restrict__ x,
-                                   uint4* __restrict__ out, int L, int e4,
-                                   int rb, int lb) {
-  const int lblocks = L / lb;
-  const int r0 = (blockIdx.x / lblocks) * rb;
-  const int l0 = (blockIdx.x % lblocks) * lb;
-  for (int p = 0; p < rb; ++p)
-    for (int l = 0; l < lb; ++l) {
-      const size_t base = (static_cast<size_t>(r0 + p) * L + l0 + l) * e4;
-      for (int i = threadIdx.x; i < e4; i += blockDim.x)
-        out[base + i] = x[base + i];
-    }
+constexpr int kThreads = 256;
+constexpr int kCopyStage = 32768;      // bytes of a ring stage
+constexpr int kCopyMaxStages = 6;      // 192 KB: the ring of a lone block
+constexpr int kCopyRingSm = kCopyMaxStages * kCopyStage;  // ring bytes an SM
+
+// A block's bytes are ``runs`` runs of ``run`` contiguous bytes, run i at
+// byte ``base + i * stride`` of x and of out; fill f is the block's bytes
+// [f * kCopyStage, (f + 1) * kCopyStage) in run order, cut at run ends
+// into bulk copies of stage s = f % stages.  Loads complete on full[s];
+// stores go out in one bulk group a fill.
+struct CopyRuns {
+  long long base, stride, run, total;
+};
+
+__device__ __forceinline__ void copy_fill(const CopyRuns& r, long long f,
+                                          uint8_t* stage, const uint8_t* x,
+                                          uint8_t* out, uint64_t* bar) {
+  long long c = f * kCopyStage;
+  const long long end = min(c + kCopyStage, r.total);
+  if (bar) hetpu::mbar_expect_tx(bar, static_cast<uint32_t>(end - c));
+  for (uint8_t* s = stage; c < end;) {
+    const long long i = c / r.run, off = c - i * r.run;
+    const uint32_t n = static_cast<uint32_t>(min(r.run - off, end - c));
+    const long long g = r.base + i * r.stride + off;
+    if (bar) hetpu::bulk_load(s, x + g, n, bar);
+    else hetpu::bulk_store(out + g, s, n);
+    s += n;
+    c += n;
+  }
 }
+
+// Waits until at most n (0..6) of this thread's bulk groups still read
+// shared memory.
+__device__ __forceinline__ void bulk_wait_read(int n) {
+  switch (n) {
+    case 0: hetpu::bulk_wait_read<0>(); break;
+    case 1: hetpu::bulk_wait_read<1>(); break;
+    case 2: hetpu::bulk_wait_read<2>(); break;
+    case 3: hetpu::bulk_wait_read<3>(); break;
+    case 4: hetpu::bulk_wait_read<4>(); break;
+    case 5: hetpu::bulk_wait_read<5>(); break;
+    default: hetpu::bulk_wait_read<6>(); break;
+  }
+}
+
+// Two elected threads a block drive a ring of ``stages`` shared-memory
+// stages: lane 0 of warp 0 loads fill f into stage f % stages once the
+// stage is empty, lane 0 of warp 1 stores it once it is full and marks the
+// stage of fill f - d empty again (d = stages / 2) once that store has been
+// read out (bulk groups waited with .read), so half the ring is in flight
+// as loads and half as stores, and loads never wait behind a store.
+__global__ void __launch_bounds__(64)
+    copy_planes_kernel(const uint8_t* __restrict__ x,
+                       uint8_t* __restrict__ out, int L, long long plane,
+                       int rb, int lb, int stages) {
+  extern __shared__ __align__(128) uint8_t ring[];
+  __shared__ uint64_t full[kCopyMaxStages], empty[kCopyMaxStages];
+  const int lblocks = L / lb;
+  CopyRuns r;
+  r.base = ((static_cast<long long>(blockIdx.x / lblocks) * rb) * L +
+            (blockIdx.x % lblocks) * lb) * plane;
+  r.stride = L * plane;
+  r.run = lb * plane;
+  long long runs = rb;
+  if (lb == L) {  // the block's planes are contiguous: one run
+    r.run *= rb;
+    runs = 1;
+  }
+  r.total = r.run * runs;
+  const long long fills = (r.total + kCopyStage - 1) / kCopyStage;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      hetpu::mbar_init(&full[s], 1);
+      hetpu::mbar_init(&empty[s], 1);
+    }
+    hetpu::mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (long long f = 0; f < fills; ++f) {
+      const int s = static_cast<int>(f % stages);
+      hetpu::mbar_wait(&empty[s],
+                       static_cast<uint32_t>(((f / stages) & 1) ^ 1));
+      copy_fill(r, f, ring + s * kCopyStage, x, out, &full[s]);
+    }
+  } else if (threadIdx.x == 32) {
+    const int d = stages > 1 ? stages / 2 : 1;  // stores left in flight
+    for (long long f = 0; f < fills; ++f) {
+      const int s = static_cast<int>(f % stages);
+      hetpu::mbar_wait(&full[s], static_cast<uint32_t>((f / stages) & 1));
+      copy_fill(r, f, ring + s * kCopyStage, x, out, nullptr);
+      hetpu::bulk_commit();
+      if (f >= d) {  // fill f - d's stage, once its store is read out
+        bulk_wait_read(d);
+        hetpu::mbar_arrive(&empty[(f - d) % stages]);
+      }
+    }
+    hetpu::bulk_wait<0>();
+  }
+}
+
+// Stages a block: the ring an SM holds (kCopyRingSm) shared by the blocks
+// that land on one SM, at least 2 (one loading, one storing), at most 6,
+// and no more than the block's fills.
+int copy_stages(long long blocks, long long fills, int sms) {
+  const long long per_sm = (blocks + sms - 1) / sms;
+  long long s = kCopyRingSm / (per_sm * kCopyStage);
+  s = s < 2 ? 2 : s > kCopyMaxStages ? kCopyMaxStages : s;
+  return static_cast<int>(fills < s ? fills : s);
+}
+
+uint64_t copy_smem_set = 0;  // devices whose smem limit is set
 
 constexpr uint32_t kMulConst = 2654435761u;
 
@@ -119,92 +221,6 @@ __device__ __forceinline__ void quad_of(int i, int& nq, int& kq) {
   const int w = i >> 5, l = i & 31;
   nq = (w & 3) * 8 + (l & 7);
   kq = (w >> 2) * 4 + (l >> 3);
-}
-
-// ---------------------------------------------------------------- P3
-
-constexpr int kDotRows = 64;    // rows of A per block
-constexpr int kDotN = 128;      // columns of each B plane
-constexpr int kThreads = 256;   // 8 warps: 4 row groups x 2 column halves
-
-template <bool AU, bool BU>
-__global__ void __launch_bounds__(kThreads)
-    dot_i8_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
-                  int32_t* __restrict__ out, int M, int K, int batch,
-                  int ppb) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  const int ks = K + 16;        // padded row stride: fragment reads hit
-  const int ks4 = ks / 4;       // distinct banks
-  uint8_t* as = smem;                    // [64][ks]   rows of A
-  uint8_t* bt = smem + kDotRows * ks;    // [128][ks]  bt[n][k] = B[k][n]
-  const uint32_t* as32 = reinterpret_cast<const uint32_t*>(as);
-  uint32_t* bt32 = reinterpret_cast<uint32_t*>(bt);
-  const int m0 = blockIdx.x * kDotRows;
-  const int kv = K / 16;
-  for (int i = threadIdx.x; i < kDotRows * kv; i += blockDim.x) {
-    const int r = i / kv, c = i % kv;
-    *reinterpret_cast<uint4*>(as + r * ks + c * 16) =
-        *reinterpret_cast<const uint4*>(a + static_cast<size_t>(m0 + r) * K +
-                                        c * 16);
-  }
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int msub = warp & 3, nh = warp >> 2;
-  const int arow = (msub * 16 + g) * ks4;
-  const int p_end = min(batch, static_cast<int>(blockIdx.y + 1) * ppb);
-  for (int p = blockIdx.y * ppb; p < p_end; ++p) {
-    __syncthreads();  // A slab stored; the previous plane's bt reads done
-    const uint8_t* bp = b + static_cast<size_t>(p) * K * kDotN;
-    for (int i = threadIdx.x; i < K * kDotN / 16; i += blockDim.x) {
-      int nq, kq;
-      quad_of(i, nq, kq);
-      const uint8_t* src = bp + static_cast<size_t>(4 * kq) * kDotN + 4 * nq;
-      uint32_t c[4];
-      transpose4x4(*reinterpret_cast<const uint32_t*>(src),
-                   *reinterpret_cast<const uint32_t*>(src + kDotN),
-                   *reinterpret_cast<const uint32_t*>(src + 2 * kDotN),
-                   *reinterpret_cast<const uint32_t*>(src + 3 * kDotN), c);
-      uint32_t* dst = bt32 + 4 * nq * ks4 + kq;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) dst[j * ks4] = c[j];
-    }
-    __syncthreads();
-    int acc[8][4] = {};
-    for (int kk = 0; kk < K / 32; ++kk) {
-      const int kw = kk * 8 + t;
-      const uint32_t a0 = as32[arow + kw], a1 = as32[arow + 8 * ks4 + kw];
-      const uint32_t a2 = as32[arow + kw + 4];
-      const uint32_t a3 = as32[arow + 8 * ks4 + kw + 4];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int brow = (nh * 64 + j * 8 + g) * ks4 + kw;
-        mma_k32<AU, BU>(acc[j], a0, a1, a2, a3, bt32[brow], bt32[brow + 4]);
-      }
-    }
-    int32_t* op = out + (static_cast<size_t>(p) * M + m0 + msub * 16 + g) *
-                            kDotN + nh * 64 + 2 * t;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      *reinterpret_cast<int2*>(op + j * 8) = make_int2(acc[j][0], acc[j][1]);
-      *reinterpret_cast<int2*>(op + 8 * kDotN + j * 8) =
-          make_int2(acc[j][2], acc[j][3]);
-    }
-  }
-}
-
-template <bool AU, bool BU>
-int launch_dot(const void* a, const void* b, void* out, int M, int K,
-               int batch, int ppb, cudaStream_t stream) {
-  const int smem = (kDotRows + kDotN) * (K + 16);
-  cudaError_t err = cudaFuncSetAttribute(
-      dot_i8_kernel<AU, BU>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(M / kDotRows, (batch + ppb - 1) / ppb);
-  dot_i8_kernel<AU, BU><<<grid, kThreads, smem, stream>>>(
-      static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(b),
-      static_cast<int32_t*>(out), M, K, batch, ppb);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------- P4
@@ -400,9 +416,18 @@ int launch_part(const void* x, const void* w, const void* tw, const void* tws,
 extern "C" int hetpu_copy_planes(const void* x, void* out, int R, int L,
                                  int e4, int rb, int lb,
                                  cudaStream_t stream) {
-  const unsigned blocks = static_cast<unsigned>(R / rb) * (L / lb);
-  copy_planes_kernel<<<blocks, kThreads, 0, stream>>>(
-      static_cast<const uint4*>(x), static_cast<uint4*>(out), L, e4, rb, lb);
+  const long long plane = 16LL * e4;
+  const long long blocks = static_cast<long long>(R / rb) * (L / lb);
+  const long long bytes = static_cast<long long>(rb) * lb * plane;
+  const int stages = copy_stages(blocks, (bytes + kCopyStage - 1) /
+                                             kCopyStage, hetpu::sm_count());
+  cudaError_t err = hetpu::set_smem_once(copy_planes_kernel, kCopyRingSm,
+                                         copy_smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  copy_planes_kernel<<<static_cast<unsigned>(blocks), 64,
+                       stages * kCopyStage, stream>>>(
+      static_cast<const uint8_t*>(x), static_cast<uint8_t*>(out), L, plane,
+      rb, lb, stages);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -414,19 +439,6 @@ extern "C" int hetpu_muladd_u32(const void* x, void* out, long long n4,
       static_cast<const uint4*>(x), static_cast<uint4*>(out),
       static_cast<size_t>(n4));
   return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int hetpu_dot_i8(const void* a, const void* b, void* out, int M,
-                            int K, int batch, int ppb, int a_unsigned,
-                            int b_unsigned, cudaStream_t stream) {
-  if (a_unsigned)
-    return b_unsigned ? launch_dot<true, true>(a, b, out, M, K, batch, ppb,
-                                               stream)
-                      : launch_dot<true, false>(a, b, out, M, K, batch, ppb,
-                                                stream);
-  return b_unsigned
-             ? launch_dot<false, true>(a, b, out, M, K, batch, ppb, stream)
-             : launch_dot<false, false>(a, b, out, M, K, batch, ppb, stream);
 }
 
 extern "C" int hetpu_plane_parts(const void* x, const void* w, const void* tw,

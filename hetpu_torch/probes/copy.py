@@ -3,15 +3,23 @@
 Port of ``scripts/probe_grid.py`` (Pallas copy kernels ``make`` :30 and
 ``make_flat`` :48) and ``scripts/probe_overhead.py`` (``copy_call`` :21),
 through kernel P1 ``copy_planes`` (``csrc/probes.cu``): a u32 plane copy
-whose planes per block is a parameter, ``rows_per_block`` rows of one limb
-(the TPU's block (rb, 1, 128, 128)) or of all limbs (``all_limbs``, the
-TPU's (rb, L, 128, 128)).  The TPU probe's grid orders and its
-parallel/arbitrary dimension semantics have no counterpart: blocks on the
-card run in parallel, in no order.  Bound: bytes, 18.87 MB each way at
+whose unit of work a block is a parameter, ``rows_per_block`` planes of one
+limb (the TPU's block (rb, 1, 128, 128)) or of all limbs (``all_limbs``,
+the TPU's (rb, L, 128, 128)).  On the card each block is one CTA whose
+planes move through a ring of 32 KB shared-memory stages by 1-D bulk
+copies (TMA): one thread loads into stages (completion on one mbarrier a
+stage), another stores out of them in bulk groups and frees a stage once
+its store has been read, half the ring in flight each way.  The ring holds
+up to 192 KB, shared by the blocks an SM holds; one block reaches ~47
+GB/s each way, the rate of one SM's bulk copies.
+The TPU probe's grid orders and
+its parallel/arbitrary dimension semantics have no counterpart: blocks on
+the card run in parallel, in no order.  Bound: bytes, 18.87 MB each way at
 [32, 9, 128, 128].
 
 A CUDA tensor launches the kernel; a CPU tensor takes
-:func:`copy_planes_plain`.
+:func:`copy_planes_plain`.  ``tests/test_torch_probe_tiles.py`` rebuilds
+the kernel's bulk copies on the host.
 """
 
 from __future__ import annotations
@@ -52,8 +60,9 @@ def copy_planes_plain(x: torch.Tensor, rows_per_block: int = 8,
 def copy_planes(x: torch.Tensor, rows_per_block: int = 8,
                 all_limbs: bool = False) -> torch.Tensor:
     """Copy of int32 x [R, L, H, W] (or [R, H, W]); on the card kernel
-    ``copy_planes`` with ``rows_per_block`` rows of one limb (or of all
-    limbs) a block."""
+    ``copy_planes``, one CTA a block of ``rows_per_block`` rows of one limb
+    (or of all limbs), its planes moved through the CTA's bulk-copy
+    ring."""
     R, limbs, E = _check(x, rows_per_block)
     if not cuda_lib.on_card(x):
         return copy_planes_plain(x, rows_per_block, all_limbs)

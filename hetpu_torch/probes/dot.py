@@ -6,7 +6,16 @@ s8×s8, u8×u8 at [128,256]@[256,128]), ``scripts/probe_pallas_s8.py`` (:14:
 s8 [512,512]@[512,128]) and ``scripts/probe_int8_mxu.py`` (``pl_dot`` :59
 one plane a step, ``pl_dot8`` :93 eight planes a step; w [512,512] s8
 against B = 288 planes [512,128], chained through an int8 cast), through
-kernel P3 ``dot_i8`` (``csrc/probes.cu``, ``mma.sync`` m16n8k32).
+kernel P3 ``dot_i8`` (``csrc/dot_i8.cu``, ``wgmma`` m64n128k32).
+
+On the card a persistent grid (one CTA an SM) walks tiles of (slab of A,
+``planes_per_block`` planes of B): a slab is 256 rows of A (128 where
+K > 512 or M < 256), brought in by TMA once and kept for the CTA's tiles
+of that slab; a producer warpgroup transposes each plane of B, 128 rows of
+K at a time, into the K-major swizzled layout ``wgmma`` reads; two consumer
+warpgroups run the products and write each m64×n128 int32 tile through a
+swizzled shared-memory staging tile with TMA stores.  ``tests/test_torch_probe_tiles.py``
+rebuilds that decomposition on the host.
 
 The Pallas kernels of ``probe_int8_mxu.py`` contract ``a[b]`` [512,128]
 on its axis 1 with ``w`` on its axis 0 (:54-56, :88-90); those shapes do
@@ -33,7 +42,7 @@ from ..core.mxu_digits import wrap_i8
 from . import chain, device_of, header
 
 _INT8 = (torch.int8, torch.uint8)
-ROWS_PER_BLOCK = 64             # the kernel's row slab of A
+ROWS_PER_BLOCK = 64             # M must be a multiple of one wgmma's rows
 N_COLS = 128                    # the kernel's plane width
 
 
@@ -68,9 +77,10 @@ def dot_i8_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def dot_i8(a: torch.Tensor, b: torch.Tensor,
            planes_per_block: int = 1) -> torch.Tensor:
     """out [batch, M, N] int32 = a [M, K] @ b[p] [K, N] for u8/s8 a and b
-    (signedness from the dtypes); kernel ``dot_i8`` on CUDA tensors, each
-    block taking ``planes_per_block`` planes of b against a 64-row slab of
-    a.  The kernel needs M % 64 == 0, K % 32 == 0, K ≤ 1024, N = 128."""
+    (signedness from the dtypes); kernel ``dot_i8`` on CUDA tensors, whose
+    tiles are ``planes_per_block`` planes of b against one slab of a (256
+    rows, or 128 where K > 512 or M < 256).  The kernel needs
+    M % 64 == 0, K % 32 == 0, K ≤ 1024, N = 128."""
     M, K, batch = _check(a, b)
     if not cuda_lib.on_card(a, b):
         return dot_i8_plain(a, b)

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the fused and NTT kernels of hetpu_torch trees side by side on
-one NVIDIA card.
+"""Time the fused and NTT kernels and the probe kernels P1 and P3 of
+hetpu_torch trees side by side on one NVIDIA card.
 
     python kernel_ab.py ROOT [ROOT ...]
 
@@ -18,10 +18,15 @@ repeated five times).  Per root, one JSON line:
     through ``evaluator._fbc_fwd_mont`` with their centered plans
     (``centered_cases``), and the centered decomposition
     ``Evaluator(ctx, centered_fbc=True)._decompose`` at [8,9,N] (row 0
-    checked against the CPU evaluator);
+    checked against the CPU evaluator); and the probe kernels P1
+    ``copy_planes`` (8a rb=8 one limb, 8b rb=8 flat at [32,9,128,128],
+    8c 1152 planes) and P3 ``dot_i8`` (8e s8×s8 [128,256]@[256,128], 8f
+    s8 [512,512]@[512,128], 8g and 8h: 288 planes at 1 and 8 planes a
+    block), each exact against its plain version;
   * ``host_us``: host µs per call of K1 at the rescale's INTT [8,2,1,N],
-    K3 at the tail and the centered tail conversion
-    (``chip_smoke.host_us``: calls enqueued back to back, host clock);
+    K3 at the tail, the centered tail conversion, P1 at [8,1,128,128] and
+    P3 at [512,512]@[1,512,128] (``chip_smoke.host_us``: calls enqueued
+    back to back, host clock);
   * ``infer_step``, in both FBC modes (``default``, ``centered``):
     ``chip_smoke.profile_calls`` over 5 calls on B=8: device µs per call
     of each package kernel, all device time, device kernels per call; and
@@ -70,6 +75,8 @@ def _child(root: str) -> dict:
                                       ntt_inv_plain)
     from hetpu_torch.core.params import preset
     from hetpu_torch.offload import pipeline
+    from hetpu_torch.probes import copy as copy_probe
+    from hetpu_torch.probes import dot
     from hetpu_torch.session import Session
 
     if not torch.cuda.is_available():
@@ -101,6 +108,31 @@ def _child(root: str) -> dict:
                        evaluator._fbc_fwd_mont(u, fbc, dt, plan),
                        lambda u=u, plan=plan, dt=dt:
                        ntt_fwd_plain(plan.apply_plain(u), dt, to_mont=True))
+    # the probe kernels P1 and P3 at the probes' shapes (PERF.md 8a-8h)
+    xp = copy_probe.planes_u32((32, 9, 128, 128), device="cuda")
+    x1152 = copy_probe.planes_u32((1152, 128, 128), device="cuda")
+    for name, (xc, rb, flat) in {"copy_planes_8a": (xp, 8, False),
+                                 "copy_planes_8b": (xp, 8, True),
+                                 "copy_planes_8c": (x1152, 8, False)}.items():
+        calls[name] = (xc, lambda xc=xc, rb=rb, flat=flat:
+                       copy_probe.copy_planes(xc, rb, flat),
+                       lambda xc=xc, rb=rb, flat=flat:
+                       copy_probe.copy_planes_plain(xc, rb, flat))
+    gen = np.random.default_rng(0)
+    s8 = [torch.from_numpy(v).cuda()
+          for v in dot.pair_inputs(np.int8, np.int8)]
+    w512 = torch.from_numpy(gen.integers(-128, 128, (512, 512),
+                                         dtype=np.int8)).cuda()
+    x512 = torch.from_numpy(gen.integers(-128, 128, (1, 512, 128),
+                                         dtype=np.int8)).cuda()
+    w288, a288 = dot.int8_mxu_inputs(288, device="cuda")
+    for name, (wa, xb, ppb) in {"dot_i8_8e": (s8[0], s8[1][None], 1),
+                                "dot_i8_8f": (w512, x512, 1),
+                                "dot_i8_8g": (w288, a288, 1),
+                                "dot_i8_8h": (w288, a288, 8)}.items():
+        calls[name] = (xb, lambda wa=wa, xb=xb, ppb=ppb:
+                       dot.dot_i8(wa, xb, ppb),
+                       lambda wa=wa, xb=xb: dot.dot_i8_plain(wa, xb))
     kernels = {}
     for name, (a, call, plain) in calls.items():
         if not torch.equal(call(), plain()):
@@ -122,6 +154,12 @@ def _child(root: str) -> dict:
     host = {name: smoke.host_us(calls[name][1])
             for name in ("ntt_inv_rescale", "ntt_fwd_fbc",
                          "ntt_fwd_centered_tail")}
+    # the probe wrappers at phase 18's host_cost shapes (a P3 call encodes
+    # two tensor maps)
+    xs = copy_probe.planes_u32((8, 1, 128, 128), device="cuda")
+    w1, a1 = dot.int8_mxu_inputs(1, device="cuda")
+    host["copy_planes"] = smoke.host_us(lambda: copy_probe.copy_planes(xs, 8))
+    host["dot_i8"] = smoke.host_us(lambda: dot.dot_i8(w1, a1))
 
     sess = Session.create("bench_n14", seed=b"\x21" * 32,
                           galois_steps=list(range(1, N_DIAGS)))

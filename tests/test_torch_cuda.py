@@ -417,7 +417,10 @@ def test_infer_step_card_equals_cpu(dev, centered):
 @pytest.mark.parametrize("shape,rb,flat", [((32, 9, 128, 128), 8, False),
                                            ((32, 9, 128, 128), 32, True),
                                            ((288, 128, 128), 8, False),
-                                           ((4, 3, 8, 8), 2, True)])
+                                           ((4, 3, 8, 8), 2, True),
+                                           ((32, 9, 128, 128), 8, True),
+                                           ((32, 9, 128, 128), 1, False),
+                                           ((4, 3, 8, 8), 2, False)])
 def test_copy_planes_kernel(dev, shape, rb, flat):
     x = copy_probe.planes_u32(shape, seed=len(shape) + rb, device=dev)
     before = cuda_lib.launches["copy_planes"]
@@ -440,10 +443,26 @@ def test_dot_i8_pairs(dev, pair):
     assert torch.equal(dot.dot_i8(a, b), dot.dot_i8_plain(a, b))
 
 
-@pytest.mark.parametrize("batch,ppb", [(1, 1), (19, 1), (19, 8)])
+@pytest.mark.parametrize("batch,ppb", [(1, 1), (19, 1), (19, 8), (288, 1),
+                                       (288, 8)])
 def test_dot_i8_batched(dev, batch, ppb):
     w, a = dot.int8_mxu_inputs(batch, seed=batch, device=dev)
     assert torch.equal(dot.dot_i8(w, a, ppb), dot.dot_i8_plain(w, a))
+
+
+@pytest.mark.parametrize("pair", [p[0] for p in dot.PAIRS])
+@pytest.mark.parametrize("M,K,batch,ppb", [(320, 96, 19, 8),
+                                           (192, 1024, 5, 2),
+                                           (64, 32, 3, 1)])
+def test_dot_i8_edges(dev, pair, M, K, batch, ppb):
+    """Slabs past M (clipped stores, zero-filled A), K not a multiple of
+    the 128-byte chunk, the K = 1024 slab of 128 rows, one 64-row slab."""
+    _, la, ra = next(p for p in dot.PAIRS if p[0] == pair)
+    rng = np.random.default_rng(M + K)
+    a = torch.from_numpy(rng.integers(0, 256, (M, K)).astype(la)).to(dev)
+    b = torch.from_numpy(rng.integers(0, 256, (batch, K, 128))
+                         .astype(ra)).to(dev)
+    assert torch.equal(dot.dot_i8(a, b, ppb), dot.dot_i8_plain(a, b))
 
 
 @pytest.mark.parametrize("variant", ["copy", "dot", "dot2", "extract",
@@ -474,6 +493,30 @@ def test_graph_replay_counts_its_launches(dev):
         g.replay()
     assert cuda_lib.launches["muladd_u32"] == before["muladd_u32"] + 4
     assert probes.cold_ms(fn, reps=2) > 0
+
+
+def test_copy_and_dot_replay_in_a_graph(dev):
+    """copy_planes (8b's flat blocks) and dot_i8 (tensor maps passed by
+    value) capture into one CUDA graph; each replay recomputes both from
+    the inputs' current contents and counts one launch of each."""
+    from hetpu_torch import probes
+    x = copy_probe.planes_u32((32, 9, 128, 128), device=dev)
+    w, a = dot.int8_mxu_inputs(19, device=dev)
+    got = {}
+    fn = lambda: got.update(c=copy_probe.copy_planes(x, 8, True),
+                            d=dot.dot_i8(w, a, 8))
+    g = probes.Captured(fn)
+    assert g.kernels == {"copy_planes": 1, "dot_i8": 1}
+    before = dict(cuda_lib.launches)
+    for seed in (1, 2):
+        x.copy_(copy_probe.planes_u32(x.shape, seed=seed, device=dev))
+        a.copy_(dot.int8_mxu_inputs(19, seed=seed, device=dev)[1])
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got["c"], x)
+        assert torch.equal(got["d"], dot.dot_i8_plain(w, a))
+    for k in ("copy_planes", "dot_i8"):
+        assert cuda_lib.launches[k] == before[k] + 2
 
 
 # ----------------------------------------------------------------------
