@@ -55,7 +55,9 @@ run exits non-zero without a result line):
      digit; K3 and K6 mod-down [8,2,2,N]→[8,2,7,N]; K4 at J=4, R=9) and of
      the paired-prime path at ckks_hi14's top level (K1 [8,2,2,N] and
      [8,2,5,N]; K3 and K6 pair [8,2,2,N]→[8,2,10,N] and fused tail
-     [8,2,5,N]→[8,2,10,N]); then the application paths' top-level shapes:
+     [8,2,5,N]→[8,2,10,N]); K4 also, exact only, at batches 1, 3, 8, 64
+     by digits 1, 2, 7, 27 ([B,J,9,2^13], ragged batch tiles); then the
+     application paths' top-level shapes:
      ckks_deep_hi (N=2^15, 25 data primes, J=7, R=29) and ckks_deep
      (N=2^15, 16 data primes, J=4, R=20) at one row, ckks_fft at 64 rows
      (K1 decompose INTT, forward NTT over the data primes and over the key
@@ -121,7 +123,8 @@ run exits non-zero without a result line):
      P3 dot_i8 and P4 plane_parts against their plain versions at each
      probe's own shapes, exact (P3 on all four u8/s8 pairs at [128,256]@
      [256,128], then [512,512]@[512,128] and 288 planes; P4 in all six
-     variants), timed as in phase 4 with the bound (bytes, or int8
+     variants, and exact only at rows 1, 5, 32 by limbs 1, 3, 9 with the
+     extreme int32 values), timed as in phase 4 with the bound (bytes, or int8
      tensor-core operations over 1,979 TOP/s where larger) and the library
      call where one computes the same function (Tensor.copy_ for P1,
      torch._int_mm for s8×s8 P3), both timed as ms and graph_ms; P4's
@@ -187,7 +190,7 @@ import torch
 
 from hetpu_torch.bfv import BfvSession
 from hetpu_torch.core import (centered_fbc, cuda_lib, fused_ntt, ip_kernel,
-                              serial)
+                              nt, serial)
 from hetpu_torch.core.bfv import BfvScheme
 from hetpu_torch.core.centered_fbc import CenteredFbcPlan
 from hetpu_torch.core.ciphertext import Ciphertext
@@ -591,6 +594,33 @@ def ip_compare(name, rng, ks, rows: int = B) -> dict:
                    [ext, k, k_sh])
 
 
+def exact(name, kernel_fn, plain_fn) -> None:
+    """Kernel vs plain version on the same inputs, bit for bit, untimed."""
+    got, want = kernel_fn(), plain_fn()
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not torch.equal(got, want):
+        raise AssertionError(f"{name}: kernel differs from plain")
+    log("kernel_exact", kernel=name, shape_out=list(got.shape))
+
+
+# K4's edge cases: batches by digits, 9 limbs of N = 2^13
+IP_EDGE_B, IP_EDGE_J, IP_EDGE_R, IP_EDGE_N = (1, 3, 8, 64), (1, 2, 7, 27), \
+    9, 1 << 13
+
+
+def ip_edges(rng) -> None:
+    primes = nt.gen_primes(30, IP_EDGE_R, 2 * IP_EDGE_N)
+    q = from_u32(np.array(primes, dtype=np.uint64).reshape(-1, 1), "cuda")
+    for b in IP_EDGE_B:
+        for j in IP_EDGE_J:
+            ext = residues(rng, (b, j, IP_EDGE_R, IP_EDGE_N), primes)
+            k = residues(rng, (j, 2, IP_EDGE_R, IP_EDGE_N), primes)
+            ks = shoup_companion(k, q)
+            exact(f"inner_product B={b} J={j}",
+                  lambda: ip_kernel.inner_product(ext, k, ks, q),
+                  lambda: ip_kernel.inner_product_plain(ext, k, ks, q))
+
+
 def phase_kernels(rng) -> dict:
     ctx = Context(preset("bench_n14"))
     n = ctx.params.poly_degree
@@ -616,6 +646,7 @@ def phase_kernels(rng) -> dict:
         out[name] = fbc_compare(name, u, fbc, dt)
 
     out["inner_product"] = ip_compare("inner_product", rng, ks)
+    ip_edges(rng)
 
     # K5 at the four bench_n14 B=8 shapes of the centered path
     k5 = {"centered_fbc_tail": (ctx.centered_fbc_plan(mdr.fbc), (B, 2)),
@@ -1635,8 +1666,22 @@ def phase_probe_kernels(rng) -> dict:
             library=(lambda: dstp.copy_(xp), lambda r: r) if v == "copy"
             else None)
     for v, issued in (("dot", 2 * macs), ("dot2", 4 * macs)):
-        out["plane_parts_" + v]["issued_ops_ms"] = \
-            issued / INT8_OPS_PER_S * 1e3
+        r = out["plane_parts_" + v]
+        r["issued_ops_ms"] = issued / INT8_OPS_PER_S * 1e3
+        r["issued_tmac_per_s"] = issued / 2 / (r["graph_ms"] * 1e-3) / 1e12
+    # edge shapes, exact only: rows 1, 5, 32 by limbs 1, 3, 9 (at 5 x 9 and
+    # 32 x 9 the clusters' ranges cross limb boundaries), extreme values
+    for rows in (1, 5, 32):
+        for limbs in (1, 3, 9):
+            xe, we, twe, twse = kernel_parts.make_inputs(
+                rows, limbs, seed=rows * 10 + limbs, device="cuda")
+            xe[-1, -1, -1, -4:] = torch.tensor(
+                [-1, -2**31, 2**31 - 1, 536870912], dtype=torch.int32)
+            for v in kernel_parts.VARIANTS:
+                exact(f"plane_parts {v} {rows}x{limbs}",
+                      lambda: kernel_parts.plane_parts(v, xe, we, twe, twse),
+                      lambda: kernel_parts.plane_parts_plain(v, xe, we, twe,
+                                                             twse))
     for name, r in out.items():
         log("kernel_vs_plain", kernel=name, **r)
     return out
@@ -2349,7 +2394,7 @@ KERNELS = [
     ("dot_i8", "hetpu_torch/csrc/dot_i8.cu", "scripts/probe_int8_mxu.py:59",
      ("dot_i8_288", "dot_i8_288_ppb8", "dot_i8_512", "dot_i8_u8xs8",
       "dot_i8_s8xu8", "dot_i8_s8xs8", "dot_i8_u8xu8"), "probes"),
-    ("plane_parts", "hetpu_torch/csrc/probes.cu",
+    ("plane_parts", "hetpu_torch/csrc/plane_parts.cu",
      "scripts/probe_kernel_parts.py:57",
      ("plane_parts_twiddle",) + tuple(c for c in PARTS
                                       if c != "plane_parts_twiddle"),
@@ -2363,7 +2408,7 @@ KERNELS = [
 CASE_KEYS = ("shape_in", "shape_out", "ms", "graph_ms", "plain_ms",
              "bound_ms", "bound_by", "imul_bound_ms", "library_ms",
              "library_graph_ms", "exchange_ms", "gbps_per_cta",
-             "tmac_per_s")
+             "tmac_per_s", "issued_tmac_per_s")
 
 
 def main() -> int:

@@ -137,11 +137,11 @@ def lift_plan(ks_plan, di: int) -> CenteredFbcPlan:
     return CenteredFbcPlan(q[lo:hi], q[foreign], C, device=ks_plan.q.device)
 
 
-def fbc_plan(fbc: FbcPlan, extra=None) -> CenteredFbcPlan:
+def fbc_plan(plan: FbcPlan, extra=None) -> CenteredFbcPlan:
     """Centered form of ``rns.fbc_apply(..., correct=True, premul=False)``
     for an :class:`~.rns.FbcPlan`, with an optional folded per-destination
     constant."""
     return CenteredFbcPlan(
-        to_u32(fbc.p)[:, 0], to_u32(fbc.r)[:, 0], to_u32(fbc.phat_mod_r),
-        alpha_coeff=to_u32(fbc.ptot_mod_r)[:, 0], extra=extra,
-        device=fbc.r.device)
+        to_u32(plan.p)[:, 0], to_u32(plan.r)[:, 0], to_u32(plan.phat_mod_r),
+        alpha_coeff=to_u32(plan.ptot_mod_r)[:, 0], extra=extra,
+        device=plan.r.device)

@@ -13,7 +13,10 @@ from __future__ import annotations
 
 from dataclasses import dataclass, replace
 
+import numpy as np
 import torch
+
+from .modular import to_u32
 
 
 @dataclass(frozen=True)
@@ -25,6 +28,10 @@ class Ciphertext:
     @property
     def num_parts(self) -> int:
         return self.data.shape[-3]
+
+    @property
+    def poly_degree(self) -> int:
+        return self.data.shape[-1]
 
     @property
     def batch_shape(self) -> tuple[int, ...]:
@@ -44,6 +51,10 @@ class Plaintext:
     level: int = 0
     scale: float = 1.0
 
+    @property
+    def poly_degree(self) -> int:
+        return self.data.shape[-1]
+
 
 def scales_close(a: float, b: float, rel: float = 1e-6) -> bool:
     return abs(a - b) <= rel * max(abs(a), abs(b))
@@ -55,3 +66,9 @@ def check_add_compat(a, b, op: str = "add") -> None:
                          "(Session.reach_level aligns them)")
     if not scales_close(a.scale, b.scale):
         raise ValueError(f"{op}: scale mismatch {a.scale} vs {b.scale}")
+
+
+def np_data(ct) -> np.ndarray:
+    """The residues of ``ct`` (a ciphertext or plaintext) as a host numpy
+    uint32 array: hetpu's ``np.asarray(ct.data)``."""
+    return to_u32(ct.data)

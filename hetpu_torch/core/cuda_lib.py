@@ -65,8 +65,8 @@ _SIGNATURES = {
     # pm, pms, w, ws, q, c1, stream
     "hetpu_ntt_fwd_centered": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _I,
                                _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
-    # ext, k, ks, q, out, B, J, R, n, stream
-    "hetpu_inner_product": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # ext, k, ks, q, out, B, J, R, n, bt, stream
+    "hetpu_inner_product": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # y, out, rows, S, F, n, q_src, recip, c, cs, pm, pms, ex, exs, q_dst,
     # stream
     "hetpu_centered_fbc": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,

@@ -60,84 +60,14 @@ constexpr int kDynSmem = 232448 - 1024;  // the limit less the static part
 constexpr int kConsumers = 256;         // warpgroups 0 and 1
 constexpr int kDotThreads = 384;        // and the producer, warpgroup 2
 
-#define HETPU_WGMMA_I8(TA, TB)                                                \
-  asm volatile(                                                               \
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                            \
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32." TA "." TB " {"           \
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "          \
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "          \
-      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "          \
-      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "          \
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "          \
-      "%62, %63}, %64, %65, p;\n}\n"                                          \
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),           \
-        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),           \
-        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),      \
-        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),      \
-        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),      \
-        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),      \
-        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),      \
-        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),      \
-        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),      \
-        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),      \
-        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),      \
-        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),      \
-        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])                    \
-      : "l"(da), "l"(db), "r"(accumulate))
-
-// d (+)= A (64 x 32, descriptor da) x B (32 x 128, descriptor db); the sum
-// starts from zero where ``accumulate`` is 0.
-template <bool AU, bool BU>
-__device__ __forceinline__ void wgmma_k32(int (&d)[64], uint64_t da,
-                                          uint64_t db, int accumulate) {
-  if constexpr (!AU && !BU) HETPU_WGMMA_I8("s8", "s8");
-  else if constexpr (!AU && BU) HETPU_WGMMA_I8("s8", "u8");
-  else if constexpr (AU && !BU) HETPU_WGMMA_I8("u8", "s8");
-  else HETPU_WGMMA_I8("u8", "u8");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// Wait until at most N of the warpgroup's wgmma groups are in flight.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-// Keeps the compiler from moving accumulator reads across the wait.
-__device__ __forceinline__ void keep(int (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
-}
-
-// Descriptor of a K-major operand in the 128-byte swizzle layout: rows of
-// 128 bytes, 8-row groups 1024 bytes apart (stride offset 64 x 16 bytes),
-// the k32 step selected by the start address inside the swizzle row.
-__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
-  const uint64_t a = hetpu::smem_addr(p);
-  return ((a & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
-}
-
-// Byte (k, n) of a 4x4 block given as four rows r0..r3 (byte j of ri is
-// column j of row i) → four columns, byte i of column j = row i.
-__device__ __forceinline__ void transpose4x4(uint32_t r0, uint32_t r1,
-                                             uint32_t r2, uint32_t r3,
-                                             uint32_t (&c)[4]) {
-  const uint32_t t0 = __byte_perm(r0, r1, 0x5140);
-  const uint32_t t1 = __byte_perm(r0, r1, 0x7362);
-  const uint32_t t2 = __byte_perm(r2, r3, 0x5140);
-  const uint32_t t3 = __byte_perm(r2, r3, 0x7362);
-  c[0] = __byte_perm(t0, t2, 0x5410);
-  c[1] = __byte_perm(t0, t2, 0x7632);
-  c[2] = __byte_perm(t1, t3, 0x5410);
-  c[3] = __byte_perm(t1, t3, 0x7632);
-}
+using hetpu::keep;
+using hetpu::stage_box;
+using hetpu::sw128_desc;
+using hetpu::transpose4x4;
+using hetpu::wgmma_commit;
+using hetpu::wgmma_fence;
+using hetpu::wgmma_k32;
+using hetpu::wgmma_wait;
 
 // The producer's share of a chunk, rows k0..k0+kv-1 of a plane [K][128]
 // (src at row k0): thread pt takes k rows 16 * (pt % 8) .. +15 and columns
@@ -175,25 +105,6 @@ __device__ __forceinline__ void store_chunk(const uint2 (&v)[16], int kv,
       *reinterpret_cast<uint4*>(stage + n * kKc + ((kb ^ (n & 7)) << 4)) =
           make_uint4(c[0][j], c[1][j], c[2][j], c[3][j]);
     }
-  }
-}
-
-// Box BX (columns 32 BX .. +31) of the m64 x n128 accumulator fragment of
-// thread lt of a warpgroup (warp w, lane 4 g + t: rows 16 w + g and + 8,
-// columns 8 j + 2 t and + 1) → a [64][32] int32 box, 16-byte unit u of row
-// r at u ^ (r & 7).
-template <int BX>
-__device__ __forceinline__ void stage_box(const int (&d)[64], uint8_t* box,
-                                          int lt) {
-  const int w = lt >> 5, g = (lt & 31) >> 2, t = lt & 3;
-  const int r0 = 16 * w + g;
-#pragma unroll
-  for (int j = 4 * BX; j < 4 * BX + 4; ++j) {
-    const int u = 2 * (j & 3) + (t >> 1);
-    uint8_t* o = box + ((u ^ g) << 4) + ((t & 1) << 3);
-    *reinterpret_cast<int2*>(o + r0 * 128) = make_int2(d[4 * j], d[4 * j + 1]);
-    *reinterpret_cast<int2*>(o + (r0 + 8) * 128) =
-        make_int2(d[4 * j + 2], d[4 * j + 3]);
   }
 }
 

@@ -75,7 +75,9 @@ def serve_once(transport=None, device="cuda") -> str:
             t.close()
 
 
-def main() -> None:
+def main(workload: str | None = None) -> None:
+    """Serve one request, whichever workload it names (``workload`` is
+    hetpu's argument, which its ``main`` does not read either)."""
     print(f"hetpu_torch server: listening on "
           f"127.0.0.1:{native.PORT_LO}-{native.PORT_HI}")
     w = serve_once()

@@ -40,8 +40,9 @@ from .peer import all_gather, all_to_all
 class FourStepTables:
     """The flat transform's ψ split into an [n1, n2] four-step, int64
     tensors on one device: sub-transform twiddles [L, n_sub] (bit-reversed
-    powers of ψ^{n2} and ψ^{n1}), their N_sub⁻¹ constants [L], and the
-    inter-step twiddles [L, n1, n2]."""
+    powers of ψ^{n2} and ψ^{n1}), their N_sub⁻¹ constants [L] (and
+    n1⁻¹·R⁻¹, R = 2^32, for the inverse that strips the Montgomery
+    factor), and the inter-step twiddles [L, n1, n2]."""
 
     n: int
     n1: int
@@ -51,6 +52,7 @@ class FourStepTables:
     sub1_fwd: torch.Tensor
     sub1_inv: torch.Tensor
     sub1_n_inv: torch.Tensor
+    sub1_n_inv_rinv: torch.Tensor
     sub2_fwd: torch.Tensor
     sub2_inv: torch.Tensor
     sub2_n_inv: torch.Tensor
@@ -76,7 +78,7 @@ def _host(n: int, primes: tuple[int, ...]) -> dict[str, np.ndarray]:
         ("sub1_fwd", n1), ("sub1_inv", n1), ("sub2_fwd", n2),
         ("sub2_inv", n2))}
     out.update({k: np.zeros(L, dtype=np.int64) for k in (
-        "sub1_n_inv", "sub2_n_inv")})
+        "sub1_n_inv", "sub1_n_inv_rinv", "sub2_n_inv")})
     out["t_fwd"] = np.zeros((L, n1, n2), dtype=np.int64)
     out["t_inv"] = np.zeros((L, n1, n2), dtype=np.int64)
     br1 = np.array([nt.bit_reverse(i, n1.bit_length() - 1)
@@ -90,6 +92,8 @@ def _host(n: int, primes: tuple[int, ...]) -> dict[str, np.ndarray]:
             out[f"{k}_fwd"][li] = _powers(pow(psi, e, q), size, q)[br]
             out[f"{k}_inv"][li] = _powers(pow(psi_i, e, q), size, q)[br]
             out[f"{k}_n_inv"][li] = nt.modinv(size, q)
+        out["sub1_n_inv_rinv"][li] = nt.modinv(n1, q) \
+            * nt.modinv((1 << 32) % q, q) % q
         for p in range(n1):
             e = int(1 + 2 * br1[p] - n1) % (2 * n)
             out["t_fwd"][li, p] = _powers(pow(psi, e, q), n2, q)
@@ -167,11 +171,12 @@ def cp_ntt_fwd(x: torch.Tensor, t: FourStepTables, mesh,
     return all_gather(y, mesh, axis, dim=1).reshape(L, t.n)
 
 
-def cp_ntt_inv(x: torch.Tensor, t: FourStepTables, mesh,
-               axis: str = "cp") -> torch.Tensor:
+def cp_ntt_inv(x: torch.Tensor, t: FourStepTables, mesh, axis: str = "cp",
+               *, strip_mont: bool = False) -> torch.Tensor:
     """Mirror of :func:`cp_ntt_fwd`: [L, N] bit-reversed evaluations →
-    [L, N] coefficients (×N⁻¹), the flat ``ntt_inv``'s bits.  Rank i
-    transforms the i-th n1 row block."""
+    [L, N] coefficients (×N⁻¹, and ×R⁻¹ with ``strip_mont``: Montgomery
+    evaluations out of standard form), the flat ``ntt_inv``'s bits.  Rank
+    i transforms the i-th n1 row block."""
     cp = mesh.shape[axis]
     L = _check(t, x, cp)
     i, h1 = mesh.axis_index(axis), t.n1 // cp
@@ -183,5 +188,6 @@ def cp_ntt_inv(x: torch.Tensor, t: FourStepTables, mesh,
     w2 = t.n2 // cp
     y = y.transpose(-1, -2).to(torch.int64)               # [L, n1, n2/cp]
     y = y * t.t_inv[:, :, i * w2:(i + 1) * w2] % t.q.reshape(L, 1, 1)
-    y = _inv_axis2(y, t.sub1_inv, t.q, t.sub1_n_inv).to(torch.int32)
+    fin = t.sub1_n_inv_rinv if strip_mont else t.sub1_n_inv
+    y = _inv_axis2(y, t.sub1_inv, t.q, fin).to(torch.int32)
     return all_gather(y, mesh, axis, dim=2).reshape(L, t.n)

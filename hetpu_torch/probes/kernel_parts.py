@@ -1,7 +1,7 @@
 """Probe ``kernel_parts``: the per-plane stages of an int8-digit NTT.
 
 Port of ``scripts/probe_kernel_parts.py`` (Pallas kernel ``make`` :57)
-through kernel P4 ``plane_parts`` (``csrc/probes.cu``).  For each
+through kernel P4 ``plane_parts`` (``csrc/plane_parts.cu``).  For each
 [128, 128] u32 plane x of limb l of x [rows, L, 128, 128], q = 2^30 + 1:
 
 * ``copy``    — x;

@@ -23,3 +23,8 @@ def leaves(obj) -> list:
 
 def tensor_leaves(obj) -> list[torch.Tensor]:
     return [x for x in leaves(obj) if isinstance(x, torch.Tensor)]
+
+
+# hetpu's export (``hetpu/utils/__init__.py``); last, since timer.py
+# imports tensor_leaves from here
+from .timer import Timer  # noqa: E402

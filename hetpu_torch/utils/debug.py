@@ -11,7 +11,8 @@ in-place update corrupt the caller's retained ciphertext silently.
   (the port's form of the reference's ``donation_audit``, which read the
   declared input→output buffer aliases of the compiled XLA program;
   eager PyTorch has no such declaration, so the audit looks at where the
-  returned tensors live).
+  returned tensors live).  ``donation_audit`` is the same function under
+  the reference's name.
 """
 
 from __future__ import annotations
@@ -66,3 +67,9 @@ def alias_audit(fn, *args, expect_aliases: int = 0) -> int:
             f"(expected {expect_aliases}) — an evaluator op must not "
             f"silently share caller ciphertext buffers")
     return n
+
+
+# hetpu's name (``hetpu/utils/debug.py``): there it counts the aliases a
+# compiled function declares; eagerly, the storage an output shares with an
+# input is the same question
+donation_audit = alias_audit

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the fused and NTT kernels and the probe kernels P1 and P3 of
-hetpu_torch trees side by side on one NVIDIA card.
+"""Time the fused and NTT kernels, the key-switch inner product and the
+probe kernels P1, P3 and P4 of hetpu_torch trees side by side on one
+NVIDIA card.
 
     python kernel_ab.py ROOT [ROOT ...]
 
@@ -18,11 +19,15 @@ repeated five times).  Per root, one JSON line:
     through ``evaluator._fbc_fwd_mont`` with their centered plans
     (``centered_cases``), and the centered decomposition
     ``Evaluator(ctx, centered_fbc=True)._decompose`` at [8,9,N] (row 0
-    checked against the CPU evaluator); and the probe kernels P1
-    ``copy_planes`` (8a rb=8 one limb, 8b rb=8 flat at [32,9,128,128],
-    8c 1152 planes) and P3 ``dot_i8`` (8e s8×s8 [128,256]@[256,128], 8f
-    s8 [512,512]@[512,128], 8g and 8h: 288 planes at 1 and 8 planes a
-    block), each exact against its plain version;
+    checked against the CPU evaluator); K4 ``inner_product`` at every path
+    shape of PERF.md row 4 ([B, J, R, N]: bench_n14, bfv_batch,
+    ckks_deep_hi, ckks_deep, ckks_fft x64, the sweep's level 26, ckks_hi
+    x64, bfv_matpow x4; residues of 30-bit NTT primes); and the probe
+    kernels P1 ``copy_planes`` (8a rb=8 one limb, 8b rb=8 flat at
+    [32,9,128,128], 8c 1152 planes), P3 ``dot_i8`` (8e s8×s8
+    [128,256]@[256,128], 8f s8 [512,512]@[512,128], 8g and 8h: 288 planes
+    at 1 and 8 planes a block) and P4 ``plane_parts`` (8i: all six parts
+    at [32,9,128,128]), each exact against its plain version;
   * ``host_us``: host µs per call of K1 at the rescale's INTT [8,2,1,N],
     K3 at the tail, the centered tail conversion, P1 at [8,1,128,128] and
     P3 at [512,512]@[1,512,128] (``chip_smoke.host_us``: calls enqueued
@@ -50,6 +55,11 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 N_DIAGS, WSEED = 8, 7
+# K4's path shapes [B, J, R, N] (PERF.md row 4)
+IP_SHAPES = {"bench_n14": (8, 2, 14, 1 << 14), "bfv_batch": (8, 4, 9, 1 << 14),
+             "deep_hi": (1, 7, 29, 1 << 15), "deep": (1, 4, 20, 1 << 15),
+             "fft64": (64, 4, 14, 1 << 14), "sweep26": (1, 27, 28, 1 << 15),
+             "hi64": (64, 3, 8, 1 << 13), "matpow4": (4, 4, 9, 1 << 14)}
 
 
 def _smoke():
@@ -68,7 +78,8 @@ def _child(root: str) -> dict:
     import torch
 
     from hetpu_torch import probes
-    from hetpu_torch.core import evaluator, fused_ntt
+    from hetpu_torch.core import evaluator, fused_ntt, ip_kernel, nt
+    from hetpu_torch.core.modular import from_u32, shoup_companion
     from hetpu_torch.core.context import Context
     from hetpu_torch.core.evaluator import Evaluator
     from hetpu_torch.core.ntt import (ntt_fwd, ntt_fwd_plain, ntt_inv,
@@ -76,7 +87,7 @@ def _child(root: str) -> dict:
     from hetpu_torch.core.params import preset
     from hetpu_torch.offload import pipeline
     from hetpu_torch.probes import copy as copy_probe
-    from hetpu_torch.probes import dot
+    from hetpu_torch.probes import dot, kernel_parts
     from hetpu_torch.session import Session
 
     if not torch.cuda.is_available():
@@ -133,6 +144,24 @@ def _child(root: str) -> dict:
         calls[name] = (xb, lambda wa=wa, xb=xb, ppb=ppb:
                        dot.dot_i8(wa, xb, ppb),
                        lambda wa=wa, xb=xb: dot.dot_i8_plain(wa, xb))
+    # K4 at the path shapes of PERF.md row 4
+    for name, (b, j, r, n) in IP_SHAPES.items():
+        primes = nt.gen_primes(30, r, 2 * n)
+        q = from_u32(np.array(primes, dtype=np.uint64).reshape(r, 1), "cuda")
+        ext = smoke.residues(rng, (b, j, r, n), primes)
+        k = smoke.residues(rng, (j, 2, r, n), primes)
+        k_sh = shoup_companion(k, q)
+        calls["inner_product_" + name] = (
+            ext, lambda ext=ext, k=k, k_sh=k_sh, q=q:
+            ip_kernel.inner_product(ext, k, k_sh, q),
+            lambda ext=ext, k=k, k_sh=k_sh, q=q:
+            ip_kernel.inner_product_plain(ext, k, k_sh, q))
+    # P4's six parts at the probe's shape (PERF.md 8i)
+    parts = kernel_parts.make_inputs(device="cuda")
+    for v in kernel_parts.VARIANTS:
+        calls["plane_parts_" + v] = (
+            parts[0], lambda v=v: kernel_parts.plane_parts(v, *parts),
+            lambda v=v: kernel_parts.plane_parts_plain(v, *parts))
     kernels = {}
     for name, (a, call, plain) in calls.items():
         if not torch.equal(call(), plain()):

@@ -242,6 +242,40 @@ def test_inner_product_kernel(dev, ctx, lead):
                        ip_kernel.inner_product_plain(ext, k, k_sh, ks.q))
 
 
+# K4 at every path shape of PERF.md row 4 (B, J, R, N) and at edge batches
+# and digit counts (ragged batch tiles, J = 1 .. 27)
+IP_PATH_SHAPES = [(8, 2, 14, 1 << 14), (8, 4, 9, 1 << 14),
+                  (1, 7, 29, 1 << 15), (1, 4, 20, 1 << 15),
+                  (64, 4, 14, 1 << 14), (1, 27, 28, 1 << 15),
+                  (64, 3, 8, 1 << 13), (4, 4, 9, 1 << 14)]
+IP_EDGES = [(B, J, 9, 1 << 13) for B in (1, 3, 8, 64) for J in (1, 2, 7, 27)]
+
+
+@pytest.mark.parametrize("B,J,R,N", IP_PATH_SHAPES + IP_EDGES)
+def test_inner_product_shapes(dev, B, J, R, N):
+    primes = gen_primes(30, R, 2 * N)
+    rng = np.random.default_rng(B * 100 + J)
+    ext = _res(rng, (B, J, R, N), primes, dev)
+    k = _res(rng, (J, 2, R, N), primes, dev)
+    q = from_u32(np.array(primes, dtype=np.uint64).reshape(R, 1), dev)
+    k_sh = shoup_companion(k, q)
+    assert torch.equal(ip_kernel.inner_product(ext, k, k_sh, q),
+                       ip_kernel.inner_product_plain(ext, k, k_sh, q))
+
+
+def test_inner_product_refuses_unaligned(dev):
+    q = torch.full((1, 1), 12289, dtype=torch.int32, device=dev)
+    k = torch.zeros((1, 2, 1, 64), dtype=torch.int32, device=dev)
+    ext = torch.zeros(65, dtype=torch.int32, device=dev)[1:].view(1, 1, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        ip_kernel.inner_product(ext, k, k, q)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        ip_kernel.inner_product(torch.zeros((1, 1, 6), dtype=torch.int32,
+                                            device=dev),
+                                k[..., :6].contiguous(),
+                                k[..., :6].contiguous(), q)
+
+
 def test_wrappers_refuse_bad_input(dev, ctx):
     t = ctx.tables(5)
     x = torch.zeros((2, 6, 4096), dtype=torch.int32, device=dev)
@@ -472,6 +506,22 @@ def test_plane_parts_kernel(dev, variant):
                                              device=dev)
     x[0, 0, 0, :4] = torch.tensor([-1, -2**31, 2**31 - 1, 536870912],
                                   dtype=torch.int32)
+    got = kernel_parts.plane_parts(variant, x, w, tw, tws)
+    assert torch.equal(got, kernel_parts.plane_parts_plain(variant, x, w,
+                                                           tw, tws))
+
+
+@pytest.mark.parametrize("variant", kernel_parts.VARIANTS)
+@pytest.mark.parametrize("rows", [1, 5, 32])
+@pytest.mark.parametrize("limbs", [1, 3, 9])
+def test_plane_parts_edges(dev, variant, rows, limbs):
+    """Rows 1, 5, 32 by limbs 1, 3, 9 (at 5 x 9 and 32 x 9 the clusters'
+    ranges cross limb boundaries), with the extreme int32 values."""
+    x, w, tw, tws = kernel_parts.make_inputs(rows=rows, limbs=limbs,
+                                             seed=rows * 10 + limbs,
+                                             device=dev)
+    x[-1, -1, -1, -4:] = torch.tensor([-1, -2**31, 2**31 - 1, 536870912],
+                                      dtype=torch.int32)
     got = kernel_parts.plane_parts(variant, x, w, tw, tws)
     assert torch.equal(got, kernel_parts.plane_parts_plain(variant, x, w,
                                                            tw, tws))

@@ -435,6 +435,24 @@ def test_cp_ntt(runs, inputs, world):
         np.testing.assert_array_equal(r["roundtrip"], inp["cp_x"])
 
 
+@pytest.mark.parametrize("world", WORLDS)
+def test_cp_ntt_inv_strip_mont(runs, inputs, world):
+    """cp_ntt_inv(strip_mont=True) (×N⁻¹R⁻¹) equals hetpu's jitted
+    cp_ntt_inv(strip_mont=True) and the port's flat ntt_inv(strip_mont=
+    True), bit for bit, on every rank."""
+    inp = inputs[1]
+    primes = [int(p) for p in inp["cp_primes"]]
+    t4 = ref_ntt4.build_tables(ranks.CP_N, primes)
+    mesh = _mesh(world, "cp")
+    want = np.asarray(jax.jit(lambda a: ref_cp.cp_ntt_inv(
+        a, t4, mesh, strip_mont=True))(jnp.asarray(inp["cp_y"])))
+    tf = build_tables(ranks.CP_N, primes, "cpu")
+    np.testing.assert_array_equal(
+        to_u32(ntt_inv(from_u32(inp["cp_y"]), tf, strip_mont=True)), want)
+    for r in _results(runs, world, "cp"):
+        np.testing.assert_array_equal(r["inv_strip"], want)
+
+
 # ----------------------------------------------------------------------
 # the sharded pipeline
 # ----------------------------------------------------------------------

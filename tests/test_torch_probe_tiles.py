@@ -1,11 +1,14 @@
-"""The decompositions of the probe kernels P1 ``copy_planes`` and P3
-``dot_i8`` (``hetpu_torch/csrc/probes.cu``, ``csrc/dot_i8.cu``), rebuilt on
-the host here with the kernels' own constants: the bulk copies of every P1
-block, P3's persistent tile walk, the swizzled shared-memory layouts its
-transposer, its wgmma descriptors and its epilogue use, and products
-computed through them, against the plain versions and
-``jax.lax.dot_general`` (the probe scripts' product).  Exact, on the CPU.
-A change to a kernel's constants or layouts is made here too.
+"""The decompositions of the probe kernels P1 ``copy_planes``, P3
+``dot_i8`` and P4 ``plane_parts`` (``hetpu_torch/csrc/probes.cu``,
+``csrc/dot_i8.cu``, ``csrc/plane_parts.cu``), rebuilt on the host here
+with the kernels' own constants: the bulk copies of every P1 block, P3's
+persistent tile walk, the swizzled shared-memory layouts its transposer,
+its wgmma descriptors and its epilogue use; P4's cluster walk over (limb,
+plane) items, each rank's slab of w, the x8ᵀ and g8ᵀ tiles the ranks fill
+through distributed shared memory; and products computed through them,
+against the plain versions and ``jax.lax.dot_general`` (the probe scripts'
+product).  Exact, on the CPU.  A change to a kernel's constants or layouts
+is made here too.
 """
 
 import jax
@@ -15,7 +18,7 @@ import pytest
 import torch
 
 from hetpu_torch.probes import copy as copy_probe
-from hetpu_torch.probes import dot
+from hetpu_torch.probes import dot, kernel_parts
 
 torch.set_num_threads(1)
 
@@ -211,17 +214,18 @@ def fragment_rows_cols():
     return 16 * w + g + 8 * (e >> 1), 8 * j + 2 * t + (e & 1)
 
 
-def stage_offsets() -> np.ndarray:
+def stage_offsets(threads: int = 128, box: int = O_BOX) -> np.ndarray:
     """Thread lt, accumulator i → byte of the staging tile where
-    ``stage_box`` writes it: box j // 4 of four [64][32] int32 boxes,
-    16-byte unit u = 2·(j % 4) + t // 2 of its row at u ^ (row % 8)."""
-    lt = np.arange(128)[:, None]
+    ``stage_box`` writes it: box j // 4 of four [rows][32] int32 boxes
+    ``box`` bytes apart, 16-byte unit u = 2·(j % 4) + t // 2 of its row at
+    u ^ (row % 8)."""
+    lt = np.arange(threads)[:, None]
     i = np.arange(64)[None, :]
     w, g, t = lt >> 5, (lt & 31) >> 2, lt & 3
     j, e = i >> 2, i & 3
     r = 16 * w + g + 8 * (e >> 1)
     u = 2 * (j & 3) + (t >> 1)
-    return (j >> 2) * O_BOX + r * 128 + ((u ^ g) << 4) + ((t & 1) << 3) \
+    return (j >> 2) * box + r * 128 + ((u ^ g) << 4) + ((t & 1) << 3) \
         + 4 * (e & 1)
 
 
@@ -460,3 +464,286 @@ def test_dot_i8_tiled_edges(M, K, batch, ppb, sms):
     assert torch.equal(got, dot.dot_i8_plain(a, b))
     np.testing.assert_array_equal(got[1].numpy(),
                                   _dot_general(a.numpy(), b[1].numpy()))
+
+
+# ----------------------------------------------------------------------
+# P4 dot / dot2: the cluster walk, the layouts, products through them
+# ----------------------------------------------------------------------
+
+# csrc/plane_parts.cu: CTAs a cluster (one 128-row slab of w[l] each),
+# threads a CTA, the plane side, w[l]'s side, an operand tile [128 n][128 k]
+CLUSTER, DOT_THREADS, PN, WK = 4, 256, 128, 512
+TILE = PN * K_CHUNK
+PIECE = 64 * 32                          # a warpgroup's k32 step of w
+ELEM_THREADS, ELEM_VECS = 128, 8         # the elementwise parts: a block
+
+
+def plane_walk(rows: int, L: int, fit: int) -> list[list[tuple[int, int]]]:
+    """The clusters' walk: min(planes, fit) clusters, cluster c taking
+    items [items·c/C, items·(c+1)/C) of the limb-major order, item i =
+    (limb i // rows, row i % rows), plane row·L + limb."""
+    items = rows * L
+    clusters = min(items, fit)
+    return [[(i // rows, i % rows)
+             for i in range(items * c // clusters, items * (c + 1) // clusters)]
+            for c in range(clusters)]
+
+
+def put_quarters(plane: np.ndarray) -> np.ndarray:
+    """x8ᵀ as ``put_cols`` writes it in each rank and the bulk copies
+    spread it: rank c's thread tid takes column n = 32c + tid % 32, k rows
+    16·kb .. +15 (kb = tid // 32), their low bytes as one 16-byte unit kb
+    of row n at unit kb ^ (n % 8); rank c's rows n are its 4 KB part."""
+    tile = np.zeros(TILE, np.uint8)
+    low = (plane & 0xFF).astype(np.uint8)                  # [k, n]
+    tid = np.arange(DOT_THREADS)
+    kb = tid >> 5
+    for rank in range(CLUSTER):
+        n = 32 * rank + (tid & 31)
+        part = np.zeros(TILE, np.uint8)
+        for r in range(16):
+            part[n * K_CHUNK + ((kb ^ (n & 7)) << 4) + r] = low[16 * kb + r, n]
+        lo, hi = 32 * rank * K_CHUNK, 32 * (rank + 1) * K_CHUNK
+        tile[lo:hi] = part[lo:hi]                # the copied part
+    return tile
+
+
+def put_gs(acc: np.ndarray) -> np.ndarray:
+    """g8ᵀ [4 chunks][128 n][128 k] as ``put_g`` leaves it in every CTA:
+    ``acc`` [rank, warpgroup, thread, 64] int32 fragments; lane 4g + t packs
+    the low bytes of d[4j .. 4j+3], lane g reads the packs of lanes
+    16·(g >> 1 & 1) + 4s + t (s = 0..3), takes byte (g & 1) + 2·(g >> 2)
+    of each and stores the word at word g >> 1 of unit 2·warp + wg of
+    column 8j + 2t + (g & 1) in chunk ``rank``."""
+    gt = np.zeros(4 * TILE, np.uint8)
+    words = gt.view(np.uint32)
+    lt = np.arange(128)
+    w, lane = lt >> 5, lt & 31
+    g, t = lane >> 2, lane & 3
+    e, wi = g & 1, g >> 1
+    sel = e + 2 * (wi >> 1)
+    src = 16 * (wi & 1) + t                   # lane in the warp, s = 0
+    for rank in range(CLUSTER):
+        for wg in range(2):
+            d = acc[rank, wg].astype(np.int64) & 0xFF
+            for j in range(16):
+                p = (d[:, 4 * j] | d[:, 4 * j + 1] << 8
+                     | d[:, 4 * j + 2] << 16 | d[:, 4 * j + 3] << 24)
+                word = np.zeros(128, np.int64)
+                for s in range(4):
+                    b = p[32 * w + src + 4 * s]    # the shuffle's source
+                    word |= ((b >> (8 * sel)) & 0xFF) << (8 * s)
+                n = 8 * j + 2 * t + e
+                u = 2 * w + wg
+                off = rank * TILE + n * K_CHUNK + ((u ^ (n & 7)) << 4) + 4 * wi
+                words[off // 4] = word.astype(np.uint32)
+    return gt
+
+
+def swizzle32(offset):
+    """The 32-byte swizzle of a byte offset from a 256-byte-aligned base:
+    its 16-byte half XOR bit 2 of its row (of 32 bytes)."""
+    return offset ^ (((offset >> 7) & 1) << 4)
+
+
+def w_slab(w: np.ndarray, rank: int) -> np.ndarray:
+    """Rank ``rank``'s 64 KB slab as its TMA loads lay it: piece (h, c, kk)
+    (2 KB at ((4h + c)·4 + kk)·2048, one [4][16][32] box) holds rows
+    128·b + 32·rank + 16·h .. +15 of blocks b = 0..3, columns 128·kk + 32·c
+    .. +31, with the 32-byte swizzle (row 16·b + r of the piece)."""
+    slab = np.zeros(2 * 16 * PIECE, np.uint8)
+    box = np.arange(PIECE)
+    for h in range(2):
+        for c in range(4):
+            for kk in range(4):
+                rws = [128 * b + 32 * rank + 16 * h + r for b in range(4)
+                       for r in range(16)]
+                tile = w[np.ix_(rws, 128 * kk + 32 * c + np.arange(32))]
+                at = ((h * 4 + c) * 4 + kk) * PIECE
+                slab[at + swizzle32(box)] = tile.reshape(-1)
+    return slab
+
+
+def operand32(smem: np.ndarray, start: int) -> np.ndarray:
+    """The [64, 32] bytes a K-major 32-byte-swizzle descriptor at
+    ``start`` (a 256-byte-aligned piece) gives one wgmma: row r at
+    (r // 8)·256 + (r % 8)·32, swizzled."""
+    r = np.arange(64)[:, None]
+    j = np.arange(32)[None, :]
+    off = r // 8 * 256 + r % 8 * 32 + j
+    return smem[start + swizzle32(off)]
+
+
+def slab_products(slab: np.ndarray, b: np.ndarray, cstep: int,
+                  kstep: int) -> np.ndarray:
+    """``slab_product`` of both warpgroups: [2, 128 threads, 64] int32
+    fragments of the slab's rows @ B over K in the permuted order, step
+    (c, kk) reading piece (h, c, kk) and B at c·cstep + 32·kk·kstep."""
+    rows, cols = fragment_rows_cols()
+    out = np.zeros((2, 128, 64), np.int32)
+    for wg in range(2):
+        acc = np.zeros((64, PN), np.int64)
+        for c in range(4):
+            for kk in range(4):
+                aop = operand32(slab, ((wg * 4 + c) * 4 + kk) * PIECE)
+                bop = operand(b, c * cstep + 32 * kk * kstep, PN)
+                acc += aop.view(np.int8).astype(np.int64) \
+                    @ bop.view(np.int8).astype(np.int64).T
+        out[wg] = acc[rows, cols]
+    return out
+
+
+def plane_dot_tiled(variant: str, x: torch.Tensor, w: torch.Tensor,
+                    fit: int = H100_SMS // CLUSTER) -> torch.Tensor:
+    """dot / dot2 through the kernel's decomposition: the clusters' walk,
+    each rank's slab, x8ᵀ from the four ranks' parts, all 512 rows of each
+    product through the descriptors and fragments in the permuted K order,
+    dot2's int8 g through ``put_g``'s shuffles, each rank's warpgroup 0
+    rows 0..31 stored as rows 32·rank .. +31 through the staging boxes."""
+    rows, L = x.shape[:2]
+    X = x.numpy().view(np.uint32)
+    W = w.numpy().view(np.uint8)
+    out = np.zeros(x.shape, np.int32)
+    for items in plane_walk(rows, L, fit):
+        limb = -1
+        for l, r in items:
+            if l != limb:
+                limb = l
+                slabs = [w_slab(W[l], rank) for rank in range(CLUSTER)]
+            xt = put_quarters(X[r, l])
+            acc = np.stack([slab_products(slabs[rank], xt, 32, 0)
+                            for rank in range(CLUSTER)])
+            if variant == "dot2":
+                gt = put_gs(acc)
+                acc = np.stack([slab_products(slabs[rank], gt, TILE, 1)
+                                for rank in range(CLUSTER)])
+            # warp 0 of each warpgroup: rows 0..15 of its fragment through
+            # four [16][32] staging boxes, stored at rows 32·rank + 16·wg
+            offs = stage_offsets(32, 16 * 128) // 4
+            rr = np.arange(16)[:, None]
+            col = np.arange(PN)[None, :]
+            for rank in range(CLUSTER):
+                for wg in range(2):
+                    staging = np.zeros(4 * 16 * 32, np.int32)
+                    staging[offs] = acc[rank, wg, :32]
+                    r0 = 32 * rank + 16 * wg
+                    out[r, l, r0:r0 + 16] = staging[swizzle128(
+                        col // 32 * 16 * 128 + rr * 128 + col % 32 * 4) // 4]
+    return torch.from_numpy(out)
+
+
+@pytest.mark.parametrize("rows,L,fit", [
+    (32, 9, 33), (32, 9, 32),       # the probe's shape, 33 or 32 clusters
+    (1, 1, 33), (5, 3, 33), (5, 3, 4), (2, 9, 5), (32, 1, 7)])
+def test_plane_walk_covers_each_item_once(rows, L, fit):
+    """Every (limb, row) once; clusters ≤ fit, none idle; a cluster's items
+    are consecutive in limb-major order, so it reloads w at most once per
+    limb boundary it crosses."""
+    walk = plane_walk(rows, L, fit)
+    assert len(walk) == min(rows * L, fit) and all(walk)
+    seen = np.zeros((L, rows), np.int64)
+    for items in walk:
+        order = [l * rows + r for l, r in items]
+        assert order == list(range(order[0], order[0] + len(order)))
+        assert len({l for l, _ in items}) <= 1 + (len(items) - 1) // rows + 1
+        for l, r in items:
+            seen[l, r] += 1
+    assert (seen == 1).all()
+    sizes = [len(items) for items in walk]
+    assert max(sizes) - min(sizes) <= 1
+
+
+def test_slabs_hold_interleaved_rows_in_permuted_k():
+    """Rank c's piece (h, c', kk) holds rows 128·b + 32·c + 16·h .. +15 of
+    blocks b = 0..3, columns 128·kk + 32·c' .. +31; the four ranks' slabs
+    hold each byte of w[l] once; the stored rows 0..127 are block 0's,
+    rows 0..15 of each warpgroup's tile (its warp 0)."""
+    rng = np.random.default_rng(5)
+    w = rng.integers(0, 256, (WK, WK), dtype=np.uint8)
+    seen = np.zeros((WK, WK), np.int64)
+    stored = set()
+    for rank in range(CLUSTER):
+        slab = w_slab(w, rank)
+        for h in range(2):
+            rws = np.array([128 * b + 32 * rank + 16 * h + r
+                            for b in range(4) for r in range(16)])
+            stored |= set(rws[:16].tolist())
+            for c in range(4):
+                for kk in range(4):
+                    got = operand32(slab, ((h * 4 + c) * 4 + kk) * PIECE)
+                    cls = 128 * kk + 32 * c + np.arange(32)
+                    assert np.array_equal(got, w[np.ix_(rws, cls)])
+                    seen[np.ix_(rws, cls)] += 1
+    assert (seen == 1).all()
+    assert stored == set(range(PN))
+
+
+def test_x8t_is_the_swizzled_transpose():
+    """The four ranks' quarters fill x8ᵀ once: byte (n, k) holds the low
+    byte of x[k, n] at the 128-byte swizzle of n·128 + k."""
+    rng = np.random.default_rng(6)
+    plane = rng.integers(0, 1 << 32, (PN, PN), dtype=np.uint64) \
+        .astype(np.uint32)
+    tile = put_quarters(plane)
+    k, n = np.meshgrid(np.arange(PN), np.arange(PN), indexing="ij")
+    assert np.array_equal(tile[swizzle128(n * K_CHUNK + k)],
+                          (plane & 0xFF).astype(np.uint8))
+
+
+def test_g8t_is_the_swizzled_transpose():
+    """``put_g``'s shuffles put the low byte of g row 128·w + 32·rank +
+    16·wg + r (warp w's fragment row r of warpgroup wg) at k 32·w + 16·wg
+    + r of chunk ``rank``, swizzled, each k once: chunk c holds g rows
+    128·kk + 32·c + j at k 32·kk + j, the columns of w piece (c, kk)."""
+    rng = np.random.default_rng(7)
+    acc = rng.integers(-(1 << 31), 1 << 31, (CLUSTER, 2, 128, 64),
+                       dtype=np.int64).astype(np.int32)
+    gt = put_gs(acc)
+    frow, fcol = fragment_rows_cols()                 # row 16·w + r
+    g = np.zeros((WK, PN), np.int64)
+    for rank in range(CLUSTER):
+        for wg in range(2):
+            grow = 128 * (frow // 16) + 32 * rank + 16 * wg + frow % 16
+            g[grow, fcol] = acc[rank, wg]
+    c, kk, j, n = np.meshgrid(np.arange(4), np.arange(4), np.arange(32),
+                              np.arange(PN), indexing="ij")
+    at = c * TILE + swizzle128(n * K_CHUNK + 32 * kk + j)
+    assert np.array_equal(np.sort(at.ravel()), np.arange(4 * TILE))
+    assert np.array_equal(gt[at], (g[128 * kk + 32 * c + j, n] & 0xFF)
+                          .astype(np.uint8))
+
+
+@pytest.mark.parametrize("variant", ["dot", "dot2"])
+@pytest.mark.parametrize("rows,L,fit", [(1, 1, 33), (2, 3, 4), (3, 1, 2)])
+def test_plane_dot_tiled_matches_plain_and_dot_general(variant, rows, L,
+                                                       fit):
+    """Products through the cluster decomposition equal the plain version
+    and the probe's dot_general chain, with the extreme int32 values in x
+    and clusters whose range crosses a limb boundary (2 x 3 over 4)."""
+    x, w, tw, tws = kernel_parts.make_inputs(rows, L, seed=rows + L)
+    x.view(-1)[:4] = torch.tensor([-(1 << 31), (1 << 31) - 1, -1, 0],
+                                  dtype=torch.int32)
+    got = plane_dot_tiled(variant, x, w, fit)
+    assert torch.equal(got, kernel_parts.plane_parts_plain(variant, x, w, tw,
+                                                           tws))
+    xs = np.tile((x[-1, -1].numpy() & 0xFF).astype(np.uint8).view(np.int8),
+                 (4, 1))
+    g = _dot_general(w[-1].numpy(), xs)
+    if variant == "dot2":
+        g = _dot_general(w[-1].numpy(), (g & 0xFF).astype(np.uint8)
+                         .view(np.int8))
+    np.testing.assert_array_equal(got[-1, -1].numpy(), g[:PN])
+
+
+def test_elementwise_blocks_cover_each_plane_once():
+    """Four blocks a plane; block b's thread t takes uint4 1024·b + t +
+    128·i (i = 0..7): every 16-byte unit of the plane once, a warp's 32 on
+    512 contiguous bytes."""
+    ctas = PN * PN // 4 // (ELEM_THREADS * ELEM_VECS)
+    assert ctas == 4
+    b = np.arange(ctas)[:, None, None]
+    i = np.arange(ELEM_VECS)[None, :, None]
+    t = np.arange(ELEM_THREADS)[None, None, :]
+    idx = b * ELEM_THREADS * ELEM_VECS + i * ELEM_THREADS + t
+    assert np.array_equal(np.sort(idx.ravel()), np.arange(PN * PN // 4))
+    assert (np.diff(idx[..., :32], axis=-1) == 1).all()

@@ -181,6 +181,7 @@ def case_cp(env):
     y = from_u32(env.inp["cp_y"])
     fwd = cp.cp_ntt_fwd(x, t, mesh)
     return {"fwd": to_u32(fwd), "inv": to_u32(cp.cp_ntt_inv(y, t, mesh)),
+            "inv_strip": to_u32(cp.cp_ntt_inv(y, t, mesh, strip_mont=True)),
             "roundtrip": to_u32(cp.cp_ntt_inv(fwd, t, mesh))}
 
 
@@ -336,6 +337,9 @@ def main_card(rank: int, world: int, store: str, workdir: str) -> None:
                                          ntt_fwd(v, tf)))
         out["cp_inv"] = bool(torch.equal(cp.cp_ntt_inv(v, t4, cmesh),
                                          ntt_inv(v, tf)))
+        out["cp_inv_strip"] = bool(torch.equal(
+            cp.cp_ntt_inv(v, t4, cmesh, strip_mont=True),
+            ntt_inv(v, tf, strip_mont=True)))
         for m in (mesh, tmesh, cmesh):
             m.close()
         (Path(workdir) / f"card_r{rank}.json").write_text(json.dumps(out))
