@@ -14,9 +14,14 @@ run exits non-zero without a result line):
      the library) — 2 and then 4 processes on cuda:0 (gloo group, file
      store under build/chip_smoke_ranks/): P5 ``peer_permute`` against
      its gloo twin at the snippet's [8,128] f32 and the butterfly's
-     [2,13,N] int32, timed on rank 0 (eager, cold, and cudaMemcpyAsync
-     into the mapped peer buffer as the library yardstick; the twin on
-     the host clock); then the parallel path, launches counted around it:
+     [2,13,N] int32, each exchange timed as a latency (between two syncs)
+     and back to back (one sync after 20); the store and signal alone
+     timed on rank 0 (eager, cold, and cudaMemcpyAsync into the mapped
+     peer buffer as the library yardstick; the twin on the host clock);
+     64 exchanges with no host sync between them, one rank asleep 50 ms
+     before its 10th, each equal to its twin (the stress sequence of
+     tests/torch_parallel_ranks.py); an exchange refuses CUDA graph
+     capture; then the parallel path, launches counted around it:
      tp_relinearize and tp_rotate(1) at bench_n14 level 7, cp_ntt_fwd /
      cp_ntt_inv over the 9 data primes, bucketed_matvec d=8 and, at 2
      ranks, evaluate_sharded_infer B=8 — each equal to its single-rank
@@ -25,7 +30,8 @@ run exits non-zero without a result line):
      bucketed ciphertexts at rot 2 and 4 equal rot 1's and decrypt within
      1e-2 of A·v, and evaluate_sharded_infer with no mesh equals
      infer_step.  infer_step alone, and evaluate_sharded_infer at dp 1 and
-     2, are timed over 5 calls (median, least, most).  The ranks share one
+     2, are timed over 5 calls (median, least, most); ``kernel_ab.py
+     --parallel`` sets them beside a parent tree's.  The ranks share one
      card: their times are one card's, not scaling;
   3. NTT golden — the ``ntt`` kernel forward and inverse on the 14-prime
      N=2^14 basis of tests/golden/golden_n14.npz, bit-exact;
@@ -46,7 +52,10 @@ run exits non-zero without a result line):
      the tail [8,2,6,N]→[8,2,8,N] and the mod-down [8,2,5,N]→[8,2,9,N];
      K6 ``ntt_fwd_centered`` (K5's path form: the centered conversion
      fused with the forward NTT) at the centered lift [8,9,N]→[8,19,N],
-     the tail and the mod-down; K3, K5 and K6 also on near-tie α columns
+     the tail and the mod-down; K5 ``centered_fbc`` at its four bench_n14
+     shapes (tail, the lifts of digits 0 and 1, mod-down), and exact only
+     at S 1 / 6 / 16 by F 1 / 8 / 25 by 1 / 3 / 16 rows, with and without
+     α and ``extra``; K3, K5 and K6 also on near-tie α columns
      built here for the bench_n14 tail plan (columns where an fma chain
      and a multiply-then-add chain round α differently); then the shapes
      of the BFV path at bfv_batch's top level (K1 [8,2,7,N], [8,3,7,N]
@@ -594,6 +603,60 @@ def ip_compare(name, rng, ks, rows: int = B) -> dict:
                    [ext, k, k_sh])
 
 
+def k5_cases(rng, ctx) -> dict:
+    """K5 ``centered_fbc`` at the four bench_n14 B=8 conversions of the
+    centered path: (plan, residues y) by case — the tail [8,2,6,N] →
+    [8,2,8,N], the lift of digit 0 [8,5,N] → [8,9,N] and of digit 1
+    [8,4,N] → [8,10,N], the mod-down [8,2,5,N] → [8,2,9,N]."""
+    n = ctx.params.poly_degree
+    ks = ctx.keyswitch_plan(LEVEL)
+    cases = {"centered_fbc_tail": (
+                 ctx.centered_fbc_plan(ctx.moddown_rescale_plan(LEVEL).fbc),
+                 (B, 2)),
+             "centered_fbc_lift0": (centered_fbc.lift_plan(ks, 0), (B,)),
+             "centered_fbc_lift1": (centered_fbc.lift_plan(ks, 1), (B,)),
+             "centered_fbc_moddown": (ctx.centered_fbc_plan(ks.moddown.fbc),
+                                      (B, 2))}
+    return {name: (plan, residues(rng, (*lead, plan.S, n),
+                                  to_u32(plan.q_src)[:, 0]))
+            for name, (plan, lead) in cases.items()}
+
+
+def copy_cold_ms(plan, y) -> float:
+    """Cold ms of ``Tensor.copy_`` moving what K5 moves on ``y``: (S + F) / 2
+    planes of y's rows read and written (a yardstick of the bytes, not of
+    the function: no library call computes the conversion)."""
+    src = torch.zeros((*y.shape[:-2], (plan.S + plan.F) // 2, y.shape[-1]),
+                      dtype=torch.int32, device=y.device)
+    dst = torch.empty_like(src)
+    return probes.cold_ms(lambda: dst.copy_(src))
+
+
+def k5_edges(rng) -> None:
+    """K5 exact (untimed) at the edges of its grid walk and of its
+    64-bit sums: S 1 / 6 / 16 source primes, F 1 / 8 / 25 targets, 1 / 3
+    / 16 rows of N = 1024, with and without α and ``extra`` (31-bit
+    primes, so the centered values and constants are near 2^30)."""
+    n = 1 << 10
+    primes = nt.gen_primes(31, 16 + 25, 2 * n)
+    for S in (1, 6, 16):
+        for F in (1, 8, 25):
+            src, dst = primes[:S], primes[16:16 + F]
+            C = rng.integers(0, 1 << 31, (S, F), dtype=np.uint64)
+            P = rng.integers(0, 1 << 31, F, dtype=np.uint64)
+            ex = rng.integers(1, 1 << 31, F, dtype=np.uint64)
+            for alpha, extra in ((None, None), (P, None), (P, ex),
+                                 (None, ex)):
+                plan = CenteredFbcPlan(src, dst, C, alpha, extra,
+                                       device="cuda")
+                for rows in (1, 3, 16):
+                    y = residues(rng, (rows, S, n), src)
+                    exact(f"centered_fbc S={S} F={F} rows={rows} "
+                          f"alpha={alpha is not None} "
+                          f"extra={extra is not None}",
+                          lambda: plan.apply(y), lambda: plan.apply_plain(y))
+
+
 def exact(name, kernel_fn, plain_fn) -> None:
     """Kernel vs plain version on the same inputs, bit for bit, untimed."""
     got, want = kernel_fn(), plain_fn()
@@ -649,16 +712,13 @@ def phase_kernels(rng) -> dict:
     ip_edges(rng)
 
     # K5 at the four bench_n14 B=8 shapes of the centered path
-    k5 = {"centered_fbc_tail": (ctx.centered_fbc_plan(mdr.fbc), (B, 2)),
-          "centered_fbc_lift0": (centered_fbc.lift_plan(ks, 0), (B,)),
-          "centered_fbc_lift1": (centered_fbc.lift_plan(ks, 1), (B,)),
-          "centered_fbc_moddown": (ctx.centered_fbc_plan(ks.moddown.fbc),
-                                   (B, 2))}
-    for name, (plan, lead) in k5.items():
-        y = residues(rng, (*lead, plan.S, n), to_u32(plan.q_src)[:, 0])
+    k5 = k5_cases(rng, ctx)
+    for name, (plan, y) in k5.items():
         out[name] = compare(name, lambda: plan.apply(y),
                             lambda: plan.apply_plain(y),
                             [y, *plan_tensors(plan)])
+        out[name]["copy_graph_ms"] = copy_cold_ms(plan, y)
+    k5_edges(np.random.default_rng(5))
 
     # K3 and K5 on near-tie α columns of the tail plan, tiled to [B,2,S,N]
     src, dt = mdr.src_tables.primes, mdr.dst_tables
@@ -2103,12 +2163,66 @@ def _par_inputs(sess) -> dict:
         "inf": [enc(xs[i], 40 + i) for i in range(B)]}
 
 
+def par_path(sess, inp, meshes: dict, world: int) -> tuple[dict, float]:
+    """The parallel path once, on the ranks' meshes by axis (tp, cp, rot,
+    dp): tp_relinearize, tp_rotate(1), cp_ntt_fwd / cp_ntt_inv,
+    bucketed_matvec and, at 2 ranks, evaluate_sharded_infer.  Returns the
+    results and the host seconds from a synchronised start to a
+    synchronised end (the four-step tables are built before the start)."""
+    from hetpu_torch.parallel import cp, tp
+    t4 = cp.build_tables(sess.ctx.params.poly_degree,
+                         sess.ctx.params.moduli, meshes["cp"].device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = {"relin": tp.tp_relinearize(sess, inp["c3"], meshes["tp"]),
+           "rot1": tp.tp_rotate(sess, inp["ct"], 1, meshes["tp"]),
+           "cp_fwd": cp.cp_ntt_fwd(inp["cp_x"], t4, meshes["cp"]),
+           "cp_inv": cp.cp_ntt_inv(inp["cp_y"], t4, meshes["cp"]),
+           "matvec": parallel.bucketed_matvec(
+               sess, inp["diags"], inp["vec"], MATVEC_D, meshes["rot"],
+               "rot")}
+    if world == 2:
+        out["infer"] = pipeline.evaluate_sharded_infer(
+            sess, inp["inf"], WSEED, N_DIAGS, meshes["dp"])
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def exchange_latency_ms(fn, mesh, runs: int = TIMED_RUNS) -> float:
+    """Median host ms of one exchange ``fn()`` between two card syncs, the
+    ranks meeting at a barrier before each."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        mesh.barrier()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times) * 1e3
+
+
+def exchange_back_to_back_ms(fn, mesh, runs: int = TIMED_RUNS) -> float:
+    """Host ms an exchange of ``runs`` exchanges ``fn()`` enqueued back to
+    back, one card sync at the end (the ranks start at a barrier)."""
+    torch.cuda.synchronize()
+    mesh.barrier()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / runs * 1e3
+
+
 def _p5_case(name, x, mesh, perm) -> dict:
     """P5 on ``x`` (this rank's CUDA tensor) against its gloo twin on the
-    same values; every rank times the twin and the whole exchange (launch,
-    stream sync, two barriers, read-out) on the host clock; rank 0 then
-    times one store of its ``x`` into its peer's buffer (the kernel, and
-    cudaMemcpyAsync as the library yardstick) while the others wait."""
+    same values; every rank times the twin (host clock) and the exchange
+    as a latency and back to back; rank 0 then times the store and signal
+    alone (``peer.store`` of the last exchange's epoch again, with no
+    wait: the same slot, and the "arrived" words keep their value; eager
+    and cold) and cudaMemcpyAsync into the same mapped buffer (the library
+    yardstick) while the others wait."""
     from hetpu_torch.parallel import peer
     got = parallel.ppermute(x, mesh, "x", perm)
     want = parallel.ppermute(x.cpu(), mesh, "x", perm)
@@ -2116,27 +2230,29 @@ def _p5_case(name, x, mesh, perm) -> dict:
     if not torch.equal(got.cpu(), want):
         raise AssertionError(f"{name}: peer_permute differs from its twin")
     n = mesh.shape["x"]
-    host_ms = lambda v: (time.perf_counter() - v) / TIMED_RUNS * 1e3
     t0 = time.perf_counter()
     for _ in range(TIMED_RUNS):
         parallel.ppermute(x.cpu(), mesh, "x", perm)
-    plain_ms = host_ms(t0)
-    t0 = time.perf_counter()
-    for _ in range(TIMED_RUNS):
-        parallel.ppermute(x, mesh, "x", perm)
-    exchange_ms = host_ms(t0)
+    plain_ms = (time.perf_counter() - t0) / TIMED_RUNS * 1e3
+    fn = lambda: parallel.ppermute(x, mesh, "x", perm)
     r = {"max_abs_err": 0.0, "plain_ms": plain_ms,
-         "exchange_ms": exchange_ms,
+         "latency_ms": exchange_latency_ms(fn, mesh),
+         "back_to_back_ms": exchange_back_to_back_ms(fn, mesh),
          "shape_in": list(x.shape), "shape_out": list(got.shape),
          "bound_by": "bytes", "bound_ms": 2 * x.nbytes / HBM_BYTES_PER_S * 1e3,
          "ranks": n}
+    torch.cuda.synchronize()
+    mesh.barrier()
     if mesh.rank == 0:
-        dst = dict(perm)[0]
-        segs = [(x, 0, mesh.axis_ranks("x")[dst], 0, x.nbytes)]
-        own, peers = mesh.exchange.buffer(x.nbytes)
-        kernel = lambda: peer.store(mesh, segs, x.nbytes)
-        library = lambda: peer.copy(peers[segs[0][2]], x.data_ptr(),
-                                    x.nbytes, mesh.device)
+        dst = mesh.axis_ranks("x")[dict(perm)[0]]
+        segs = [(x, 0, dst, 0, x.nbytes)]
+        ex = mesh.exchange
+        cap = ex.capacity(x.nbytes)
+        _, peers = ex.buffer(cap)
+        kernel = lambda: peer.store(mesh, segs, cap, 1 << dst,
+                                    ex.epochs[cap])
+        library = lambda: peer.copy(peers[dst], x.data_ptr(), x.nbytes,
+                                    mesh.device)
         r.update(ms=median_ms(kernel), graph_ms=probes.cold_ms(kernel),
                  library_ms=median_ms(library),
                  library_graph_ms=probes.cold_ms(library))
@@ -2154,7 +2270,8 @@ def _par_rank(rank: int, world: int, workdir: str, sock=None) -> None:
     request on ``sock``.  Rank 0 writes the results."""
     import datetime
     import torch.distributed as dist
-    from hetpu_torch.parallel import cp, tp
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_parallel_ranks import p5_capture_refused, p5_stress
     work = Path(workdir)
     dist.init_process_group("gloo", init_method=f"file://{work}/store{world}",
                             world_size=world, rank=rank,
@@ -2171,6 +2288,9 @@ def _par_rank(rank: int, world: int, workdir: str, sock=None) -> None:
         res["p5"] = {"snippet": _p5_case("snippet", snip, mesh, right),
                      "butterfly": _p5_case("butterfly", fly, mesh,
                                            [(i, i ^ 1) for i in range(world)])}
+        res["p5_stress"] = p5_stress(mesh)
+        if not p5_capture_refused(mesh):
+            raise AssertionError("P5: an exchange was captured")
         t0 = time.perf_counter()
         sess = Session.create("bench_n14", seed=PAR_SEED,
                               galois_steps=PAR_STEPS)
@@ -2178,24 +2298,9 @@ def _par_rank(rank: int, world: int, workdir: str, sock=None) -> None:
         res["setup_s"] = time.perf_counter() - t0
         meshes = {a: parallel.make_mesh((world,), (a,))
                   for a in ("tp", "cp", "rot", "dp")}
-        t4 = cp.build_tables(sess.ctx.params.poly_degree,
-                             sess.ctx.params.moduli, mesh.device)
         diags, act = pipeline._infer_weights(sess.slots, N_DIAGS, WSEED)
-        torch.cuda.synchronize()
         cuda_lib.reset_launches()
-        t0 = time.perf_counter()
-        out = {"relin": tp.tp_relinearize(sess, inp["c3"], meshes["tp"]),
-               "rot1": tp.tp_rotate(sess, inp["ct"], 1, meshes["tp"]),
-               "cp_fwd": cp.cp_ntt_fwd(inp["cp_x"], t4, meshes["cp"]),
-               "cp_inv": cp.cp_ntt_inv(inp["cp_y"], t4, meshes["cp"]),
-               "matvec": parallel.bucketed_matvec(
-                   sess, inp["diags"], inp["vec"], MATVEC_D, meshes["rot"],
-                   "rot")}
-        if world == 2:
-            out["infer"] = pipeline.evaluate_sharded_infer(
-                sess, inp["inf"], WSEED, N_DIAGS, meshes["dp"])
-        torch.cuda.synchronize()
-        res["path_s"] = time.perf_counter() - t0
+        out, res["path_s"] = par_path(sess, inp, meshes, world)
         res["launches"] = dict(cuda_lib.launches)
         tabs = sess.ctx.tables(sess.ctx.num_data - 1)
         want = {"relin": sess.ev.relinearize(inp["c3"], sess.rk).data,
@@ -2260,8 +2365,9 @@ def phase_parallel(smi: str) -> tuple[dict, dict]:
     """Phase 19: the parallel layer on the card, 2 and 4 ranks on cuda:0
     (they time-slice one card: the times are one card's, never scaling
     numbers).  Each rank: P5 against its gloo twin at the snippet's shape
-    and the butterfly's [J=2, R=13, N]; tp_relinearize and tp_rotate(1)
-    at bench_n14 level 7, cp_ntt_fwd / cp_ntt_inv over the 9 data primes,
+    and the butterfly's [J=2, R=13, N], its 64-exchange stress sequence
+    and the capture refusal; tp_relinearize and tp_rotate(1) at bench_n14
+    level 7, cp_ntt_fwd / cp_ntt_inv over the 9 data primes,
     bucketed_matvec d=8 and (2 ranks) evaluate_sharded_infer B=8, each
     equal to its single-rank result; then the 2 ranks serve
     run_client_infer (bench_n14, B=8) from this process.  Here: the
@@ -2407,7 +2513,8 @@ KERNELS = [
 
 CASE_KEYS = ("shape_in", "shape_out", "ms", "graph_ms", "plain_ms",
              "bound_ms", "bound_by", "imul_bound_ms", "library_ms",
-             "library_graph_ms", "exchange_ms", "gbps_per_cta",
+             "library_graph_ms", "copy_graph_ms", "latency_ms",
+             "back_to_back_ms", "gbps_per_cta",
              "tmac_per_s", "issued_tmac_per_s")
 
 

@@ -74,6 +74,36 @@ class CenteredFbcPlan:
         if self.has_extra:
             ex = _col(np.asarray(extra).reshape(-1)) % qd
             self.extra, self.extra_shoup = t(ex), t(shoup_precompute(ex, qd))
+        self.kernel_consts = t(self._kernel_consts(
+            c, qs, qd, pm if self.has_alpha else None,
+            ex if self.has_extra else None))
+
+    @staticmethod
+    def _kernel_consts(c, qs, qd, pm, ex) -> np.ndarray:
+        """The ``centered_fbc`` kernel's constants, in the order it stages
+        them: C centered ([S, F] as int32 bits: C or C − q_f, whichever is
+        smaller in magnitude); per target q_f, floor(2^32/q_f), 2^32 mod
+        q_f and its Shoup companion, P_f centered, extra_f and its
+        companion (0 where absent), and q_f·floor(2^63/q_f) (low word,
+        high word); per source q_i, then f32(1/q_i) bits."""
+        qd = qd.astype(np.uint64)                                # [F, 1]
+        centered = lambda x, q: np.where(x > q // 2, x.astype(np.int64) - q,
+                                         x).astype(np.int64)
+        cc = centered(c.astype(np.uint64), qd.reshape(1, -1))
+        r32 = (np.uint64(1) << np.uint64(32)) % qd
+        zero = np.zeros_like(qd)
+        per_f = [qd, shoup_precompute(np.ones_like(qd), qd), r32,
+                 shoup_precompute(r32, qd),
+                 zero if pm is None else centered(pm.astype(np.uint64), qd),
+                 zero if ex is None else ex,
+                 zero if ex is None else shoup_precompute(ex, qd)]
+        off = qd * ((np.uint64(1) << np.uint64(63)) // qd)
+        per_f += [off & np.uint64(0xFFFFFFFF), off >> np.uint64(32)]
+        recip = (1.0 / qs.astype(np.float64)).astype(np.float32)
+        words = [cc.reshape(-1), np.concatenate(per_f, axis=1).reshape(-1),
+                 qs.reshape(-1), recip.view(np.uint32).reshape(-1)]
+        return np.concatenate([w.astype(np.int64) & 0xFFFFFFFF
+                               for w in words]).astype(np.uint32)
 
     # ------------------------------------------------------------------
 
@@ -107,17 +137,15 @@ class CenteredFbcPlan:
                           device=y.device)
         if rows == 0:
             return out
-        if rows > 65535:
-            raise ValueError(f"centered_fbc: {rows} rows (at most 65535)")
-        p = cuda_lib.ptr
-        a, e = self.has_alpha, self.has_extra
+        if N % 4:
+            raise ValueError(f"centered_fbc: N={N} is no multiple of 4 (a "
+                             "thread moves 4 columns)")
+        cuda_lib.check_aligned("centered_fbc", y, out)
         cuda_lib.launch(
-            "centered_fbc", "hetpu_centered_fbc", y.device, p(y), p(out),
-            rows, self.S, self.F, N, p(self.q_src),
-            p(self.recip) if a else None, p(self.c), p(self.c_shoup),
-            p(self.p_mod) if a else None, p(self.p_mod_shoup) if a else None,
-            p(self.extra) if e else None, p(self.extra_shoup) if e else None,
-            p(self.q_dst))
+            "centered_fbc", "hetpu_centered_fbc", y.device, y.data_ptr(),
+            out.data_ptr(), rows, self.S, self.F, N,
+            self.kernel_consts.data_ptr(), int(self.has_alpha),
+            int(self.has_extra))
         return out
 
 

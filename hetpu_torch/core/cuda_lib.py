@@ -67,10 +67,8 @@ _SIGNATURES = {
                                _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     # ext, k, ks, q, out, B, J, R, n, bt, stream
     "hetpu_inner_product": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # y, out, rows, S, F, n, q_src, recip, c, cs, pm, pms, ex, exs, q_dst,
-    # stream
-    "hetpu_centered_fbc": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                           _P, _P, _P, _P),
+    # y, out, rows, S, F, n, consts, has_alpha, has_extra, stream
+    "hetpu_centered_fbc": (_P, _P, _I, _I, _I, _I, _P, _I, _I, _P),
     # x, out, R, L, e4, rb, lb, stream
     "hetpu_copy_planes": (_P, _P, _I, _I, _I, _I, _I, _P),
     # x, out, n4, stream
@@ -79,11 +77,18 @@ _SIGNATURES = {
     "hetpu_dot_i8": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # x, w, tw, tws, out, planes, L, q, variant, stream
     "hetpu_plane_parts": (_P, _P, _P, _P, _P, _I, _I, _U, _I, _P),
-    # srcs, dsts, bytes (host arrays of nseg), nseg, stream
-    "hetpu_peer_permute": (_P, _P, _P, _I, _P),
+    # bases, n, me, cap, srcs, ranks, offs, bytes (host arrays of nseg),
+    # nseg, send_mask, epoch, stream
+    "hetpu_peer_store": (_P, _I, _I, _Q, _P, _P, _P, _P, _I, _U, _U, _P),
+    # bases, n, me, cap, out, out_bytes, recv_mask, progress, epoch, stream
+    "hetpu_peer_read": (_P, _I, _I, _Q, _P, _Q, _U, _P, _U, _P),
     # the exchange buffers of parallel/peer.py (no launch, not counted):
-    "hetpu_peer_alloc": (_Q, _P),          # bytes, &ptr
+    "hetpu_peer_wait_value": (_P, _U, _P),  # word, value, stream
+    "hetpu_peer_alloc": (_Q, _P),          # slot bytes, &ptr
     "hetpu_peer_free": (_P,),
+    "hetpu_peer_progress": (_P, _P),       # &host ptr, &device ptr
+    "hetpu_peer_free_host": (_P,),
+    "hetpu_peer_abort": (_P, _Q, _U),      # own buffer, slot bytes, poison
     "hetpu_peer_handle": (_P, _P),         # ptr, 64-byte handle out
     "hetpu_peer_open": (_P, _P),           # 64-byte handle, &ptr
     "hetpu_peer_close": (_P,),

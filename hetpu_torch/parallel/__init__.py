@@ -11,11 +11,14 @@ rank of a ``torch.distributed`` process group runs the same program:
   hetpu's function takes, keeps its own shard inside, and returns the same
   global result that hetpu's returns once gathered (``np.asarray(out)``),
   bit for bit;
-* the process group is gloo: it carries the host's control (IPC handles,
-  barriers) and, on the CPU, the plain twin's data;
+* the process group is gloo: it carries the host's control (the IPC
+  handles of each exchange buffer, and one barrier when a mesh closes)
+  and, on the CPU, the plain twin's data;
 * device data moves between ranks only through the ``peer_permute``
   kernel (:mod:`.peer`), which stores into the peers' buffers mapped with
-  CUDA IPC: between processes on one card, or between cards.
+  CUDA IPC (between processes on one card, or between cards) and waits
+  on flag words in those buffers: the wait is the card's, stream-ordered,
+  and the host meets no other rank inside an exchange.
 
 A :class:`Mesh` lays the group's ranks out row-major over named axes and
 owns the rank's ``device`` (``cuda:(rank mod device_count)`` unless given;

@@ -4,6 +4,7 @@ probe kernels P1, P3 and P4 of hetpu_torch trees side by side on one
 NVIDIA card.
 
     python kernel_ab.py ROOT [ROOT ...]
+    python kernel_ab.py --parallel ROOT [ROOT ...]   # the parallel part only
 
 Each ROOT is a checkout holding ``hetpu_torch/``; each is measured in a
 process of its own (the trees share the package name), in the order
@@ -37,9 +38,21 @@ repeated five times).  Per root, one JSON line:
     of each package kernel, all device time, device kernels per call; and
     ms per call over 20 calls (CUDA events);
   * ``multiply_relin_rescale_ms``: ms per call over 100 calls at B=8, in
-    both modes.
+    both modes;
+  * ``parallel`` (a second line), at 2 and 4 ranks, each a process on
+    cuda:0 (the ranks time-slice the card): P5 ``peer_permute`` at the
+    snippet's [8,128] f32 (right shift) and the butterfly's [2,13,N]
+    int32 (i xor 1), each equal to its gloo twin, as ms an exchange
+    between two syncs (``latency_ms``, median of 20) and enqueued back to
+    back (``back_to_back_ms``, 20 exchanges, one sync) under ``exchange``;
+    for a tree whose wait is the host's, the exchange's five steps
+    (``split_ms``: launch, stream sync, barrier, read-out, barrier); then chip_smoke.py's parallel path once (``path_s``) and, at 2 ranks,
+    ``evaluate_sharded_infer`` at B=8 (``infer_sharded_s``: median, least
+    and most of 5 calls).
 
-The cases, timers and profile reduction come from the ``chip_smoke.py``
+K5 ``centered_fbc`` is timed with the kernels, at its four bench_n14 B=8
+shapes (``chip_smoke.k5_cases``).  The cases, timers and profile
+reduction come from the ``chip_smoke.py``
 beside this file; only entry points that every revision of the port has
 are called, so any two revisions compare.  Needs a CUDA card; builds each
 tree's kernels into its own ``build/``.
@@ -162,6 +175,10 @@ def _child(root: str) -> dict:
         calls["plane_parts_" + v] = (
             parts[0], lambda v=v: kernel_parts.plane_parts(v, *parts),
             lambda v=v: kernel_parts.plane_parts_plain(v, *parts))
+    # K5 centered_fbc at its four bench_n14 B=8 shapes (PERF.md row 7)
+    for name, (plan, y) in smoke.k5_cases(rng, ctx).items():
+        calls[name] = (y, lambda plan=plan, y=y: plan.apply(y),
+                       lambda plan=plan, y=y: plan.apply_plain(y))
     kernels = {}
     for name, (a, call, plain) in calls.items():
         if not torch.equal(call(), plain()):
@@ -216,19 +233,169 @@ def _child(root: str) -> dict:
             "infer_step": infer, "multiply_relin_rescale_ms": mrr}
 
 
+# ----------------------------------------------------------------------
+# the parallel part: P5 exchanges and the parallel path on 2 and 4 ranks
+# ----------------------------------------------------------------------
+
+PAR_WORLDS = (2, 4)
+PAR_DIR = HERE / "build" / "kernel_ab_ranks"
+PAR_TIMEOUT_S = 300
+SPLIT = ("launch", "sync", "barrier1", "readout", "barrier2")
+
+
+def _split_ms(peer, mesh, x, perm, runs: int) -> dict:
+    """The steps of an exchange whose wait is the host's (the trees before
+    the flag protocol: ``peer.store``, then a stream sync, a barrier, the
+    read-out and a second barrier), each the median host ms of ``runs``
+    exchanges between synchronised starts."""
+    import statistics
+    import time
+
+    import torch
+    ranks, i = mesh.axis_ranks("x"), mesh.axis_index("x")
+    to = [d for s, d in perm if s == i]
+    frm = [s for s, d in perm if d == i]
+    segs = [(x, 0, ranks[to[0]], 0, x.nbytes)] if to else []
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream(mesh.device)
+    steps = {k: [] for k in SPLIT}
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        mesh.barrier()
+        t = [time.perf_counter()]
+        own = peer.store(mesh, segs, x.nbytes)
+        t.append(time.perf_counter())
+        stream.synchronize()
+        t.append(time.perf_counter())
+        mesh.barrier()
+        t.append(time.perf_counter())
+        if frm:
+            peer.copy(out.data_ptr(), own, out.nbytes, mesh.device)
+            stream.synchronize()
+        t.append(time.perf_counter())
+        mesh.barrier()
+        t.append(time.perf_counter())
+        for k, a, b in zip(SPLIT, t, t[1:]):
+            steps[k].append(b - a)
+    return {k: statistics.median(v) * 1e3 for k, v in steps.items()}
+
+
+def _rank(root: str, world: int, rank: int, workdir: str) -> None:
+    """One SPMD rank on cuda:0 of the tree at ``root``: the snippet's and
+    the butterfly's exchange (each equal to its gloo twin) timed as a
+    latency and back to back (the trees before the flag protocol also by
+    step), then chip_smoke.py's parallel path once (``path_s``) and, at 2
+    ranks, ``evaluate_sharded_infer`` over 5 calls.  Rank 0 writes the
+    results."""
+    sys.path.insert(0, root)
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from hetpu_torch import parallel
+    from hetpu_torch.offload import pipeline
+    from hetpu_torch.parallel import peer
+    from hetpu_torch.session import Session
+    smoke = _smoke()
+    work = Path(workdir)
+    dist.init_process_group("gloo", init_method=f"file://{work}/store",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=PAR_TIMEOUT_S))
+    try:
+        torch.cuda.set_device(0)
+        mesh = parallel.make_mesh((world,), ("x",))
+        g = torch.Generator().manual_seed(rank)
+        cases = {"snippet": (torch.randn(smoke.SNIPPET, generator=g),
+                             [(i, (i + 1) % world) for i in range(world)]),
+                 "butterfly": (torch.randint(0, 1 << 30, (2, 13, 1 << 14),
+                                             generator=g, dtype=torch.int32),
+                               [(i, i ^ 1) for i in range(world)])}
+        runs = smoke.TIMED_RUNS
+        res = {"world": world}
+        for name, (x, perm) in cases.items():
+            xc = x.to(mesh.device)
+            want = parallel.ppermute(x, mesh, "x", perm)
+            fn = lambda: parallel.ppermute(xc, mesh, "x", perm)
+            if not torch.equal(fn().cpu(), want):
+                raise AssertionError(f"{root}: {name} differs from its "
+                                     "gloo twin")
+            r = {"exchange": {
+                "latency_ms": smoke.exchange_latency_ms(fn, mesh, runs),
+                "back_to_back_ms": smoke.exchange_back_to_back_ms(
+                    fn, mesh, runs)}}
+            if not hasattr(peer, "protocol"):
+                r["split_ms"] = _split_ms(peer, mesh, xc, perm, runs)
+            res[name] = r
+        sess = Session.create("bench_n14", seed=smoke.PAR_SEED,
+                              galois_steps=smoke.PAR_STEPS)
+        inp = smoke._par_inputs(sess)
+        meshes = {a: parallel.make_mesh((world,), (a,))
+                  for a in ("tp", "cp", "rot", "dp")}
+        mesh.barrier()
+        _, res["path_s"] = smoke.par_path(sess, inp, meshes, world)
+        if world == 2:
+            res["infer_sharded_s"] = smoke._seconds(
+                lambda: pipeline.evaluate_sharded_infer(
+                    sess, inp["inf"], smoke.WSEED, smoke.N_DIAGS,
+                    meshes["dp"]), meshes["dp"])
+        for m in (mesh, *meshes.values()):
+            m.close()
+        if rank == 0:
+            (work / "result.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def _parallel(root: str) -> dict:
+    """The parallel part of ``root`` at 2 and 4 ranks, each rank a process
+    of its own on cuda:0 (they time-slice the card)."""
+    import shutil
+    import time
+    out = {}
+    for world in PAR_WORLDS:
+        work = PAR_DIR / f"w{world}"
+        shutil.rmtree(work, ignore_errors=True)
+        work.mkdir(parents=True)
+        procs = [subprocess.Popen([sys.executable, __file__, "--rank", root,
+                                   str(world), str(r), str(work)])
+                 for r in range(world)]
+        deadline = time.monotonic() + PAR_TIMEOUT_S
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                raise
+        if any(p.returncode for p in procs):
+            raise RuntimeError(f"{root}: a rank of {world} failed")
+        out[world] = json.loads((work / "result.json").read_text())
+    return out
+
+
 def main(argv: list[str]) -> int:
     if argv[:1] == ["--child"]:
         print(json.dumps(_child(str(Path(argv[1]).resolve()))), flush=True)
         return 0
-    if not argv:
+    if argv[:1] == ["--rank"]:
+        _rank(argv[1], int(argv[2]), int(argv[3]), argv[4])
+        return 0
+    parallel_only = argv[:1] == ["--parallel"]
+    roots = argv[1:] if parallel_only else argv
+    if not roots:
         raise SystemExit(__doc__)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(json.dumps({"card": smi}), flush=True)
-    for root in argv:
-        subprocess.run([sys.executable, __file__, "--child", root],
-                       check=True)
+    for root in roots:
+        if not parallel_only:
+            subprocess.run([sys.executable, __file__, "--child", root],
+                           check=True)
+        root = str(Path(root).resolve())
+        print(json.dumps({"root": root, "parallel": _parallel(root)}),
+              flush=True)
     return 0
 
 

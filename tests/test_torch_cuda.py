@@ -354,6 +354,57 @@ def test_centered_fbc_kernel(dev, n14, kind):
     assert torch.equal(got, plan.apply_plain(y))
 
 
+K5_EDGE_PRIMES = gen_primes(31, 16 + 25, 2048)
+
+
+@pytest.mark.parametrize("S", [1, 6, 16])
+@pytest.mark.parametrize("F", [1, 8, 25])
+@pytest.mark.parametrize("terms", ["plain", "alpha", "alpha_extra", "extra"])
+def test_centered_fbc_edges(dev, S, F, terms):
+    """K5 exact at the edges of its tile walk and of its 64-bit sums: S 1,
+    6 and 16 source primes (the 16 reduce the sum twice, after 7 and 14
+    terms), F 1, 8 and 25 targets, 1, 3 and 16 rows of N = 1024, with and
+    without α and ``extra``, on 31-bit primes (centered values and
+    constants near 2^30); uniform residues plus each source's 0, q − 1,
+    ⌊q/2⌋ and ⌊q/2⌋ + 1 in the first columns."""
+    rng = np.random.default_rng(S * 100 + F)
+    src, dst = K5_EDGE_PRIMES[:S], K5_EDGE_PRIMES[16:16 + F]
+    C = rng.integers(0, 1 << 31, (S, F), dtype=np.uint64)
+    alpha = (rng.integers(0, 1 << 31, F, dtype=np.uint64)
+             if "alpha" in terms else None)
+    extra = (rng.integers(1, 1 << 31, F, dtype=np.uint64)
+             if "extra" in terms else None)
+    plan = centered_fbc.CenteredFbcPlan(src, dst, C, alpha, extra,
+                                        device=dev)
+    q = np.array(src, dtype=np.uint64).reshape(-1, 1)
+    for rows in (1, 3, 16):
+        y = rng.integers(0, 1 << 62, (rows, S, 1024), dtype=np.uint64) % q
+        y[..., :4] = np.concatenate([0 * q, q - 1, q // 2, q // 2 + 1],
+                                    axis=1)
+        y = from_u32(y, dev)
+        assert torch.equal(plan.apply(y), plan.apply_plain(y))
+
+
+@pytest.mark.parametrize("ties", ["n14_tail", "dnum"])
+def test_centered_fbc_near_ties(dev, n14, ties):
+    """K5 on centered near-tie α columns (``tests/torch_ties.py``): the
+    bench_n14 tail at level 8, and test_dnum's fused tail at its top level,
+    each tiled over [8, 2, S, N]."""
+    if ties == "n14_tail":
+        ctx, cols = n14, TIES_N14_TAIL_CENTERED
+        plan = ctx.centered_fbc_plan(ctx.moddown_rescale_plan(8).fbc)
+    else:
+        ctx, cols = Context(preset("test_dnum"), dev), TIES_DNUM_CENTERED
+        plan = ctx.centered_fbc_plan(
+            ctx.moddown_rescale_plan(ctx.num_data - 1).fbc)
+    n = ctx.params.poly_degree
+    cols = np.array(cols, dtype=np.uint64).T                  # [S, count]
+    assert cols.shape[0] == plan.S
+    y = from_u32(np.tile(cols, (8, 2, 1, n // cols.shape[1] + 1))[..., :n],
+                 dev)
+    assert torch.equal(plan.apply(y), plan.apply_plain(y))
+
+
 @pytest.mark.parametrize("kind", ["lift", "moddown", "tail", "tail_ties"])
 def test_centered_ntt_kernel_bench_n14(dev, n14, kind):
     """ntt_fwd_centered at the bench_n14 B=8 shapes at level 8: the lift
@@ -913,18 +964,64 @@ def test_server_reply_card_equals_cpu(dev):
     assert replies[0] == replies[1]
 
 
+CARD_RANKS_TIMEOUT_S = 300
+
+
+def _card_ranks(main, world: int, tmp_path, *args, prefix: str = "card"):
+    """``main`` of ``torch_parallel_ranks`` on ``world`` processes on
+    cuda:0; ranks still running after ``CARD_RANKS_TIMEOUT_S`` are killed
+    (the test fails instead of hanging).  Returns each rank's results."""
+    import time
+    ctx = mp.start_processes(main, args=(world, str(tmp_path / "store"),
+                                         str(tmp_path)) + args,
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + CARD_RANKS_TIMEOUT_S
+    while not ctx.join(timeout=1):
+        if time.monotonic() > deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            pytest.fail(f"{world} card ranks did not finish")
+    return [json.loads((tmp_path / f"{prefix}_r{r}.json").read_text())
+            for r in range(world)]
+
+
 def test_peer_permute_two_ranks(dev, tmp_path):
     """P5 at 2 ranks on the card (processes on cuda:0, buffers mapped with
     CUDA IPC): every exchange equals its gloo twin on the same values, the
-    kernel launched, and tp_relinearize (test_dnum) and cp at n=2048 on
-    the card equal their single-rank results."""
-    mp.start_processes(ranks.main_card, args=(2, str(tmp_path / "store"),
-                                              str(tmp_path)),
-                       nprocs=2, join=True, start_method="spawn")
-    for r in range(2):
-        res = json.loads((tmp_path / f"card_r{r}.json").read_text())
+    kernel launched; 64 exchanges with no host sync between them (the
+    snippet's and the butterfly's sizes, the right shift and the xor
+    pairing, one rank asleep 50 ms before its 10th) each equal their
+    twins; an exchange refuses CUDA graph capture; tp_relinearize
+    (test_dnum) and cp at n=2048 on the card equal their single-rank
+    results."""
+    for res in _card_ranks(ranks.main_card, 2, tmp_path, True):
         assert res.pop("launches") > 0
         assert all(res.values()), res
+
+
+def test_peer_permute_four_ranks(dev, tmp_path):
+    """P5 at 4 ranks on the card: every exchange, the 64-exchange stress
+    sequence with its sleeping rank, and the capture refusal, as at 2."""
+    for res in _card_ranks(ranks.main_card, 4, tmp_path, False):
+        assert res.pop("launches") > 0
+        assert all(res.values()), res
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_peer_permute_stalled_rank_raises(dev, tmp_path, world):
+    """A rank that skips an exchange: every other rank's synchronise
+    raises within the watchdog's bound (``HANG_S`` and two of its looks,
+    plus a second for the trap) instead of hanging, and its next exchange
+    is refused with the watchdog's reason; the exchange before the skip
+    was right."""
+    from hetpu_torch.parallel import peer
+    res = _card_ranks(ranks.main_stall, world, tmp_path, prefix="stall")
+    assert all(r["first"] for r in res), res
+    for r in res[:-1]:
+        assert r["raised"] and r["refused"], r
+        assert "made no progress" in r["failed"], r
+        assert peer.HANG_S < r["seconds"] < peer.HANG_S + 2 * peer.WATCH_S \
+            + 1.0, r
 
 
 def test_sharded_pipeline_without_mesh():

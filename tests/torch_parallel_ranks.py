@@ -21,6 +21,7 @@ import itertools
 import json
 import os
 import sys
+import time
 import traceback
 from pathlib import Path
 
@@ -291,11 +292,68 @@ def main_init(rank: int, coord: str, workdir: str) -> None:
         dist.destroy_process_group()
 
 
-def main_card(rank: int, world: int, store: str, workdir: str) -> None:
+SNIPPET = (8, 128)             # SNIPPETS.md: an [8, 128] f32 shard a device
+STRESS_EXCHANGES = 64
+STRESS_SLEEP_AT = 9            # the sleeping rank's 10th exchange
+STRESS_SLEEP_S = 0.05
+
+
+def p5_stress(mesh, axis: str = "x") -> int:
+    """P5 under load: ``STRESS_EXCHANGES`` exchanges enqueued with no host
+    sync between them, alternating the snippet's [8,128] f32 and the
+    butterfly's [2,13,N] int32 (two buffers) and, every two, the right
+    shift and the xor-1 pairing; the axis's last rank sleeps 50 ms
+    before its 10th.  Every output equals its gloo twin on the same values
+    (computed afterwards).  Returns the exchanges checked (``chip_smoke.py``
+    phase 19 runs it too)."""
+    n, i = mesh.shape[axis], mesh.axis_index(axis)
+    g = torch.Generator().manual_seed(100 + mesh.rank)
+    perms = ([(a, (a + 1) % n) for a in range(n)],
+             [(a, a ^ 1) for a in range(n)])
+    xs = [torch.randn(SNIPPET, generator=g) if k % 2 == 0 else
+          torch.randint(0, 1 << 30, (2, 13, 1 << 14), generator=g,
+                        dtype=torch.int32) for k in range(STRESS_EXCHANGES)]
+    on_card = [x.to(mesh.device) for x in xs]
+    torch.cuda.synchronize()
+    mesh.barrier()
+    outs = []
+    for k, x in enumerate(on_card):
+        if i == n - 1 and k == STRESS_SLEEP_AT:
+            time.sleep(STRESS_SLEEP_S)
+        outs.append(parallel.ppermute(x, mesh, axis, perms[k // 2 % 2]))
+    torch.cuda.synchronize()
+    for k, x in enumerate(xs):
+        want = parallel.ppermute(x, mesh, axis, perms[k // 2 % 2])
+        if not torch.equal(outs[k].cpu(), want):
+            raise AssertionError(f"P5 stress: exchange {k} differs from its "
+                                 "gloo twin")
+    return len(xs)
+
+
+def p5_capture_refused(mesh, axis: str = "x") -> bool:
+    """An exchange refuses CUDA graph capture (its stream waits take their
+    values from the host), after one eager exchange of the snippet's shape
+    (``chip_smoke.py`` phase 19 runs it too)."""
+    n = mesh.shape[axis]
+    perm = [(a, (a + 1) % n) for a in range(n)]
+    x = torch.zeros(SNIPPET, device=mesh.device)
+    parallel.ppermute(x, mesh, axis, perm)
+    torch.cuda.synchronize()
+    try:
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
+            parallel.ppermute(x, mesh, axis, perm)
+    except RuntimeError as err:
+        return "cannot be captured" in str(err)
+    return False
+
+
+def main_card(rank: int, world: int, store: str, workdir: str,
+              path: bool = True) -> None:
     """A rank on cuda:0 for tests/test_torch_cuda.py: P5 (every exchange,
-    aligned and unaligned sizes) against its gloo twin on the same values,
-    then tp_relinearize (test_dnum) and cp at n=2048 on the card against
-    their single-rank results; writes ``card_r{rank}.json``."""
+    aligned and unaligned sizes) against its gloo twin on the same values;
+    the stress sequence (:func:`p5_stress`) and the capture refusal; then,
+    with ``path``, tp_relinearize (test_dnum) and cp at n=2048 on the card
+    against their single-rank results; writes ``card_r{rank}.json``."""
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             world_size=world, rank=rank, timeout=TIMEOUT)
@@ -320,6 +378,12 @@ def main_card(rank: int, world: int, store: str, workdir: str) -> None:
                 got, want = fn(x.to(mesh.device)), fn(x)
                 out[f"{name}_{op}"] = bool(torch.equal(got.cpu(), want))
         out["launches"] = cuda_lib.launches["peer_permute"]
+        out["stress"] = p5_stress(mesh) == STRESS_EXCHANGES
+        out["capture_refused"] = p5_capture_refused(mesh)
+        if not path:
+            mesh.close()
+            (Path(workdir) / f"card_r{rank}.json").write_text(json.dumps(out))
+            return
         s = Session.create("test_dnum", seed=DNUM_SEED, galois_steps=[1])
         enc = lambda v, tag: s.encrypt(v, seed=bytes([tag]) * 32)
         x = np.random.default_rng(5).uniform(-1, 1, s.slots)
@@ -345,6 +409,47 @@ def main_card(rank: int, world: int, store: str, workdir: str) -> None:
         (Path(workdir) / f"card_r{rank}.json").write_text(json.dumps(out))
     finally:
         dist.destroy_process_group()
+
+
+def main_stall(rank: int, world: int, store: str, workdir: str) -> None:
+    """A rank on cuda:0 for the stalled-exchange card test: every rank
+    makes one all-gather, then the last rank skips the second, which the
+    others make and synchronise on.  Each of them must raise within the
+    watchdog's bound (``parallel.peer.HANG_S``) and refuse the next
+    exchange; the ranks then meet on the gloo group and each writes
+    ``stall_r{rank}.json``.  The ranks leave with ``os._exit``: the card
+    contexts that trapped take no further calls."""
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=world, rank=rank, timeout=TIMEOUT)
+    torch.cuda.set_device(0)
+    mesh = parallel.make_mesh((world,), ("x",))
+    x = torch.full(SNIPPET, float(rank), device=mesh.device)
+    want = torch.cat([torch.full(SNIPPET, float(r)) for r in range(world)])
+    out = {"first": bool(torch.equal(parallel.all_gather(x, mesh, "x").cpu(),
+                                     want))}
+    mesh.barrier()
+    if rank < world - 1:
+        t0 = time.monotonic()
+        try:
+            parallel.all_gather(x, mesh, "x")
+            torch.cuda.synchronize()
+            out["raised"] = False
+        except RuntimeError:
+            out["raised"] = True
+        out["seconds"] = time.monotonic() - t0
+        out["failed"] = mesh.exchange.failed
+        try:
+            parallel.all_gather(x, mesh, "x")
+            out["refused"] = False
+        except RuntimeError as err:
+            out["next"] = str(err)
+            out["refused"] = out["next"] == mesh.exchange.failed
+    mesh.barrier()
+    (Path(workdir) / f"stall_r{rank}.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+    sys.stdout.flush()
+    os._exit(0)
 
 
 if __name__ == "__main__":
