@@ -162,6 +162,21 @@ run exits non-zero without a result line):
      demos' new shapes: the sweep's level 26 (J=27, R=28), ckks_hi at the
      64×64 matmul's 64 rows, the fft demo's pair rescale of 128 ckks_fft_hi
      ciphertexts, bfv_matpow's multiply (8 rows) and relinearize (4).
+ 21. bench — ``python -m hetpu_torch.bench`` (hetpu's bench.py,
+     scripts/bench_secondary.py and scripts/bench_workloads.py) through
+     its CLI's ``main`` in this process: headline at its defaults
+     (bench_n14, B=8, K=1536, reps 2: one captured step replayed 3,072
+     times, and 1,536 eager steps), secondary at its full sizes, and
+     workloads' keygen and secondary sections into
+     build/chip_smoke_bench.json; hetpu's metric names and units, every
+     value finite and positive, no device memory grown over the replays,
+     K1-K4 launched by each program (keygen: K1), the record's meta
+     naming the card, enc_matvec64_max_err < 1e-2 (hetpu's
+     tests/test_linalg.py:83); then, at bench_n14 B=8, the tag and last
+     output after 2 chained steps of multiply_relin_rescale, rotate(·, 1)
+     and rotate_hoisted, and of the 64-rotation matvec at ckks_small,
+     equal the same 2 steps replayed from the captured step, and for the
+     first two the same chain on the CPU (plain twins), bit for bit.
 
 Launch counts are zeroed just before each path and read just after it
 (a CUDA graph's replay counts the kernels its capture recorded); the
@@ -170,10 +185,10 @@ Launch counts are zeroed just before each path and read just after it
 the probes' run; P5: on the parallel path of rank 0 of 2) and, under
 ``launches_by_path``, on every path (the BFV multiply_relin and chain,
 each paired-prime op in each mode, least squares, matmul128,
-bfft1024x64, each server workload and the demos), its eager ``ms`` and
-cold-L2 ``graph_ms``, the library call's eager ms, and under
-``cases`` the times of each shape it was compared at.  A ``total`` line
-gives the run's seconds.  The last line is
+bfft1024x64, each server workload, the demos and the bench programs),
+its eager ``ms`` and cold-L2 ``graph_ms``, the library call's eager ms,
+and under ``cases`` the times of each shape it was compared at.  A
+``total`` line gives the run's seconds.  The last line is
 {"ok": true, "device": {"platform": "gpu", ...}}.
 Imports only hetpu_torch, torch and numpy (no JAX, no hetpu).
 ``kernel_ab.py`` reuses its K1/K2/K3/K6 cases, host timing and profile
@@ -197,6 +212,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from hetpu_torch.bench import headline as bench_headline
+from hetpu_torch.bench import secondary as bench_secondary
+from hetpu_torch.bench import workloads as bench_workloads
+from hetpu_torch.bench.__main__ import main as bench_main
 from hetpu_torch.bfv import BfvSession
 from hetpu_torch.core import (centered_fbc, cuda_lib, fused_ntt, ip_kernel,
                               nt, serial)
@@ -1921,25 +1940,30 @@ def demo_values(what: str, text: str, bound) -> dict:
             "bound_source": source}
 
 
-def run_demo(argv: list) -> tuple[str, float, dict, int]:
-    """``python -m hetpu_torch.demos <argv>`` in this process, on the card,
-    launch counts zeroed just before it: (what it printed, seconds,
-    launches, peak device bytes).  A failing demo's output goes to stderr
-    before the error is raised."""
+def run_cli(main, argv: list) -> tuple[str, float, dict]:
+    """A CLI's ``main(argv)`` in this process, on the card, launch counts
+    zeroed just before it: (what it printed, seconds, launches).  A
+    failing run's output goes to stderr before the error is raised."""
     buf = io.StringIO()
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(buf):
-            rc, launches = _counted(lambda: demos_main(argv))
+            rc, launches = _counted(lambda: main(argv))
     except BaseException:
         print(buf.getvalue(), file=sys.stderr, flush=True)
         raise
     seconds = time.perf_counter() - t0
     if rc != 0:
-        raise AssertionError(f"demo {argv}: return code {rc}\n"
-                             f"{buf.getvalue()}")
-    return buf.getvalue(), seconds, launches, torch.cuda.max_memory_allocated()
+        raise AssertionError(f"{argv}: return code {rc}\n{buf.getvalue()}")
+    return buf.getvalue(), seconds, launches
+
+
+def run_demo(argv: list) -> tuple[str, float, dict, int]:
+    """``python -m hetpu_torch.demos <argv>`` (:func:`run_cli`), with the
+    peak device bytes."""
+    torch.cuda.reset_peak_memory_stats()
+    text, seconds, launches = run_cli(demos_main, argv)
+    return text, seconds, launches, torch.cuda.max_memory_allocated()
 
 
 def _printed_lines(text: str) -> list:
@@ -2103,6 +2127,142 @@ def phase_demos(rng, smi: str) -> tuple[dict, dict]:
     log("demos", seconds=round(time.perf_counter() - t_phase, 3),
         launches=total, key_cache=str(DEMO_KEYS.relative_to(ROOT)), card=smi)
     return timings, total
+
+
+# ----------------------------------------------------------------------
+# hetpu's measuring programs: python -m hetpu_torch.bench (phase 21)
+# ----------------------------------------------------------------------
+
+BENCH_OUT = ROOT / "build" / "chip_smoke_bench.json"
+CHECK_STEPS = 2
+# tests/test_linalg.py:83: hetpu's own bound on the diagonal matmul
+# (atol=1e-2)
+MATVEC_MAX_ERR = 1e-2
+
+
+def run_bench(argv: list) -> tuple[list, float, dict]:
+    """``python -m hetpu_torch.bench <argv>`` (:func:`run_cli`): (the JSON
+    lines it printed, seconds, launches); no chain may grow device memory
+    over its replays."""
+    text, seconds, launches = run_cli(bench_main, argv)
+    lines = [json.loads(ln) for ln in text.splitlines()
+             if ln.startswith("{")]
+    for ln in lines:
+        if ln.get("grown_bytes"):
+            raise AssertionError(f"bench {argv}: device memory grew over "
+                                 f"the replays: {ln}")
+    return lines, seconds, launches
+
+
+def _two_steps(chain) -> tuple:
+    for _ in range(CHECK_STEPS):
+        chain()
+    torch.cuda.synchronize()
+    return chain.tag.cpu(), chain.out.cpu()
+
+
+def _graph_steps(chain) -> tuple:
+    """The same steps replayed from the captured step, from a zero tag."""
+    graph = probes.Captured(chain)
+    chain.tag.zero_()
+    for _ in range(CHECK_STEPS):
+        graph.replay()
+    torch.cuda.synchronize()
+    return chain.tag.cpu(), chain.out.cpu()
+
+
+def bench_chain_check() -> dict:
+    """The chains that no earlier phase captured, at bench_n14 B=8 (keys
+    for steps 1..128 in powers of two): the card's tag and last output
+    after 2 eager steps equal the same 2 steps replayed from the captured
+    step, bit for bit, for multiply_relin_rescale, rotate(·, 1) and the
+    8-step rotate_hoisted, and the 64-rotation matvec at ckks_small; and
+    for multiply_relin_rescale and rotate they equal the same chain on the
+    CPU (the plain twins, the same keys and inputs)."""
+    sess = Session.create("bench_n14", seed=bench_headline.SEED,
+                          galois_steps=bench_secondary.HOIST_STEPS)
+    cpu = Session.from_wire(sess.ctx.params, sess.rk, sess.gk, device="cpu")
+    a, b = bench_headline.operands(sess, B)
+    make = {"multiply_relin_rescale": lambda s, a, b: bench_headline.chain(
+                s, a, b),
+            "rotate": lambda s, a, b: bench_secondary.rotate(s, a),
+            "rotate_hoisted": lambda s, a, b: bench_secondary.rotate_hoisted(
+                s, a)}
+    out = {}
+    for name, fn in make.items():
+        card = _two_steps(fn(sess, a, b))
+        graph = _graph_steps(fn(sess, a, b))
+        same = {"graph": all(map(torch.equal, card, graph))}
+        if name != "rotate_hoisted":
+            same["cpu"] = all(map(torch.equal, card, _two_steps(
+                fn(cpu, a.to("cpu"), b.to("cpu")))))
+        if not all(same.values()) or not card[1].any():
+            raise AssertionError(f"bench chain {name}: the card's 2 steps "
+                                 f"differ: {same}")
+        out[name] = same
+    del sess, cpu
+    _, _, bm, vb = bench_workloads.matvec_operands(
+        "cuda", False, np.random.default_rng(0))
+    card = _two_steps(bench_workloads.matvec_chain(bm, vb))
+    graph = _graph_steps(bench_workloads.matvec_chain(bm, vb))
+    if not all(map(torch.equal, card, graph)):
+        raise AssertionError("bench chain enc_matvec64: the graph's 2 steps "
+                             "differ from the eager steps")
+    out["enc_matvec64"] = {"graph": True}
+    return out
+
+
+def phase_bench(smi: str) -> dict:
+    """``python -m hetpu_torch.bench``: headline at its defaults (bench_n14,
+    B=8, K=1536, reps 2), secondary at its full sizes, workloads' keygen
+    and secondary sections into BENCH_OUT; each program's metric lines
+    checked (hetpu's names and units, finite and positive, no device
+    memory grown over the replays), K1-K4 launched by each, the record's
+    meta naming the card, enc_matvec64_max_err within MATVEC_MAX_ERR; then
+    the chains' 2-step check.  Returns the launches summed over the
+    programs' runs."""
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(cuda_lib.launches, 0)
+    BENCH_OUT.unlink(missing_ok=True)
+    want = {"headline": [bench_headline.METRIC],
+            "secondary": list(bench_secondary.K)}
+    for argv in (["headline"], ["secondary"],
+                 ["workloads", "--only", "keygen", "--out", str(BENCH_OUT)],
+                 ["workloads", "--only", "secondary", "--out",
+                  str(BENCH_OUT)]):
+        lines, seconds, launches = run_bench(argv)
+        _need(launches, ("ntt",) if "keygen" in argv else K1_K4,
+              f"bench {' '.join(argv)}")
+        metrics = [ln for ln in lines if "metric" in ln]
+        if argv[0] in want and [m["metric"] for m in metrics] \
+                != want[argv[0]]:
+            raise AssertionError(f"bench {argv}: printed {lines}")
+        for m in metrics:
+            if not (np.isfinite(m["value"]) and m["value"] > 0) \
+                    or m["unit"] not in ("ops/s", "planes/s"):
+                raise AssertionError(f"bench {argv}: {m}")
+        for k, v in launches.items():
+            total[k] += v
+        log("bench", argv=argv, seconds=seconds, lines=lines,
+            launches=launches, card=smi)
+    record = json.loads(BENCH_OUT.read_text())
+    sec = record["secondary"]
+    if record["meta"]["card"] != smi or set(record) != {
+            "meta", "keygen", "secondary"} \
+            or set(sec) != set(want["secondary"]) | {
+                "enc_matvec64_n13_ops_per_s", "enc_matvec64_max_err"}:
+        raise AssertionError(f"bench record: {record}")
+    if not sec["enc_matvec64_max_err"] < MATVEC_MAX_ERR:
+        raise AssertionError(f"enc_matvec64_max_err "
+                             f"{sec['enc_matvec64_max_err']} >= "
+                             f"{MATVEC_MAX_ERR}")
+    log("bench_record", record=record, path=str(BENCH_OUT.relative_to(ROOT)),
+        card=smi)
+    log("bench_chains", same=bench_chain_check(), steps=CHECK_STEPS,
+        preset="bench_n14", batch=B)
+    log("bench_phase", seconds=round(time.perf_counter() - t_phase, 3),
+        launches=total, card=smi)
+    return total
 
 
 # ----------------------------------------------------------------------
@@ -2540,13 +2700,15 @@ def main() -> int:
                     "bfft1024x64": phase_bfft(smi), **phase_server(smi)}
     demo_timings, demo_launches = phase_demos(rng, smi)
     timings.update(demo_timings)
+    bench_launches = phase_bench(smi)
     timings.update(phase_probe_kernels(rng))
     timings.update(par_timings)
     launches = {"default": default["launches"],
                 "centered": centered["launches"],
                 "probes": phase_probes(sess, smi),
                 **bfv_launches, **hi_launches, **app_launches,
-                "demos": demo_launches, "parallel": par_launches}
+                "demos": demo_launches, "bench": bench_launches,
+                "parallel": par_launches}
     phase_host_cost(rng, smi)
     log("total", seconds=round(time.perf_counter() - start, 3))
     rows = []

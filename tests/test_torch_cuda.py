@@ -1083,18 +1083,37 @@ def test_chained_step_graph_equals_eager(dev):
     that the same number of eager steps leaves (the capture's warm-up is
     one step).  Three steps in all: a linear op's tag alternates between
     its first fold and zero, so an even count would leave zeros."""
-    from hetpu_torch import probes
+    from hetpu_torch import bench, probes
     from hetpu_torch.demos import math_operations as mo
     sess = Session.create("test_tiny", seed=b"\x46" * 32, galois_steps=[1])
     for name, (fn, data) in mo.chained_cases(sess).items():
-        x0 = data.clone()
-        tag = torch.zeros_like(x0)
-        graph = probes.Captured(mo.chain_step(fn, x0, tag))
+        graph_chain = bench.Chain(fn, data.clone())
+        graph = probes.Captured(graph_chain)
         for _ in range(2):
             graph.replay()
-        eager = torch.zeros_like(x0)
-        step = mo.chain_step(fn, x0, eager)
+        eager = bench.Chain(fn, data.clone())
         for _ in range(3):
-            step()
-        assert torch.equal(tag, eager), name
-        assert eager.any(), name
+            eager()
+        assert torch.equal(graph_chain.tag, eager.tag), name
+        assert eager.tag.any(), name
+
+
+@pytest.mark.parametrize("name", ["multiply_relin_rescale", "rotate"])
+def test_bench_chain_graph_equals_eager(dev, name):
+    """The bench harness's chain replayed from its captured step, K=4 steps
+    from a zero tag at bench_n14 B=8, leaves the tag and last output of 4
+    eager steps; the replays launch K1 and grow no device memory."""
+    from hetpu_torch import bench
+    from hetpu_torch.bench import headline, secondary
+    sess = Session.create("bench_n14", seed=headline.SEED, galois_steps=[1])
+    a, b = headline.operands(sess, 8)
+    make = {"multiply_relin_rescale": lambda: headline.chain(sess, a, b),
+            "rotate": lambda: secondary.rotate(sess, a)}[name]
+    graph = make()
+    r = bench.timed(graph, 4, reps=1, eager=False)
+    eager = make()
+    for _ in range(4):
+        eager()
+    assert torch.equal(graph.tag, eager.tag)
+    assert torch.equal(graph.out, eager.out) and eager.out.any()
+    assert r["launches"]["ntt"] > 0 and r["grown_bytes"] == 0

@@ -33,6 +33,7 @@ from hetpu.demos import fft as ref_fft
 from hetpu.demos import math_operations as ref_math_ops
 from hetpu.demos import matrix_operations as ref_matrix_ops
 from hetpu.demos import offload_demos as ref_offload
+from hetpu_torch import bench
 from hetpu_torch.core.modular import from_u32
 from hetpu_torch.demos import (bfv_operations, fft, math_operations,
                                matrix_operations, offload_demos)
@@ -135,7 +136,7 @@ def test_fold_equals_hetpus(x_shape, y_shape):
     x0 = rng.integers(0, 1 << 32, x_shape, dtype=np.uint64).astype(np.uint32)
     y = rng.integers(0, 1 << 32, y_shape, dtype=np.uint64).astype(np.uint32)
     want = np.asarray(ref_fold_into()(jnp.asarray(x0), jnp.asarray(y)))
-    got = math_operations.fold_into(from_u32(x0, "cpu"), from_u32(y, "cpu"))
+    got = bench.fold_into(from_u32(x0, "cpu"), from_u32(y, "cpu"))
     assert got.dtype == torch.int32 and tuple(got.shape) == x_shape
     np.testing.assert_array_equal(got.numpy(), want.astype(np.int32))
 

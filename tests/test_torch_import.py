@@ -72,6 +72,9 @@ def test_import_pulls_no_jax_and_builds_nothing(tmp_path):
         import hetpu_torch.demos.bfv_operations
         import hetpu_torch.demos.math_operations, hetpu_torch.demos.fft
         import hetpu_torch.demos.offload_demos
+        import hetpu_torch.bench, hetpu_torch.bench.__main__
+        import hetpu_torch.bench.headline, hetpu_torch.bench.secondary
+        import hetpu_torch.bench.workloads
         from hetpu_torch import parallel
         from hetpu_torch.parallel import cp
         import torch
