@@ -177,6 +177,19 @@ run exits non-zero without a result line):
      and rotate_hoisted, and of the 64-rotation matvec at ckks_small,
      equal the same 2 steps replayed from the captured step, and for the
      first two the same chain on the CPU (plain twins), bit for bit.
+ 22. profiles — hetpu's op-profiling programs through the same CLI at the
+     scripts' sizes: profile_fused (bench_n14 B=32, K=16, best of 3),
+     op_parts_chain (B=32 and 64), bench_sweep (B 32 and 64 x K 8 and
+     32), probe_n15b (ckks_deep_hi B=1), probe_lsq_twice and trace_op (2
+     traced steps); every label that the script passes to chain, timeit
+     or direct (its printed lines where it has none, read from
+     scripts/<name>.py) printed, no device memory grown over any replays,
+     K1-K4 launched by each, the lsq fit's max_err within 2^-10, each
+     record written under build/hetpu_torch/ naming the card; then every
+     chain of profile_fused, profile_hotpath, op_parts_chain,
+     bench_sweep, probe_n15, probe_n15b and trace_op at its script's size
+     leaves, after its K eager steps, the tag and last output of its K
+     replays from the captured step, bit for bit.
 
 Launch counts are zeroed just before each path and read just after it
 (a CUDA graph's replay counts the kernels its capture recorded); the
@@ -197,6 +210,7 @@ reduction to compare two checkouts.
 
 from __future__ import annotations
 
+import ast
 import contextlib
 import io
 import json
@@ -212,6 +226,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from hetpu_torch.bench import (bench_sweep, op_parts_chain, probe_n15,
+                               profile_fused, profile_hotpath, trace_op)
 from hetpu_torch.bench import headline as bench_headline
 from hetpu_torch.bench import secondary as bench_secondary
 from hetpu_torch.bench import workloads as bench_workloads
@@ -1054,18 +1070,11 @@ def phase_infer_time(sess, cent, ct, diags, act, a, b, smi: str) -> None:
 
 
 # device kernel name fragment → kernel of this package (first match wins)
-KERNEL_OF = (("centered_fbc_kernel", "centered_fbc"),
-             ("centered_kernel", "ntt_fwd_centered"),
-             ("lifted_kernel", "ntt_fwd_lifted"),
-             ("fbc_kernel", "ntt_fwd_fbc"), ("ip_kernel", "inner_product"),
-             ("ntt_kernel", "ntt"))
-
-
 def profile_calls(fn, calls: int = PROFILE_ITERS, warmup: int = 3) -> dict:
     """torch.profiler over ``calls`` calls of ``fn`` after ``warmup``
     calls, per call: wall µs (profiler on), device µs of this package's
-    kernels (``ours``, by KERNEL_OF) and of the plain torch kernels
-    (``plain``, by name), and the device kernels launched."""
+    kernels (``ours``, by ``trace_op.package_name``) and of the plain
+    torch kernels (``plain``, by name), and the device kernels launched."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
@@ -1084,7 +1093,7 @@ def profile_calls(fn, calls: int = PROFILE_ITERS, warmup: int = 3) -> dict:
             continue
         us = getattr(e, "self_device_time_total", 0.0)
         n_kernels += e.count
-        name = next((k for frag, k in KERNEL_OF if frag in e.key), None)
+        name = trace_op.package_name(e.key)
         bucket = ours if name else plain
         key = name or e.key[:60]
         bucket[key] = bucket.get(key, 0.0) + us / calls
@@ -2266,6 +2275,126 @@ def phase_bench(smi: str) -> dict:
 
 
 # ----------------------------------------------------------------------
+# hetpu's op-profiling programs (phase 22)
+# ----------------------------------------------------------------------
+
+PROFILE_ARGV = (["profile_fused"], ["op_parts_chain"],
+                ["bench_sweep", "--K", "8", "32"], ["probe_n15b"],
+                ["probe_lsq_twice"], ["trace_op", "--steps", "2"])
+LSQ_MAX_ERR = 2.0 ** -10
+
+
+def _label_pattern(node) -> str:
+    if isinstance(node, ast.Constant):
+        return re.escape(node.value)
+    return "".join(re.escape(v.value) if isinstance(v, ast.Constant)
+                   else ".+?" for v in node.values)
+
+
+def script_labels(name: str) -> list:
+    """The labels scripts/<name>.py passes to chain, timeit or direct (its
+    printed strings where it has none), as regexes."""
+    tree = ast.parse((ROOT / "scripts" / f"{name}.py").read_text())
+    calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
+             and isinstance(n.func, ast.Name) and n.args
+             and isinstance(n.args[0], (ast.Constant, ast.JoinedStr))]
+    labels = [c.args[0] for c in calls
+              if c.func.id in ("chain", "timeit", "direct")] or [
+        c.args[0] for c in calls if c.func.id == "print"]
+    return [_label_pattern(n) for n in labels]
+
+
+def _eager_equals_graph(chain, k: int) -> bool:
+    """The tag and last output after k eager steps from a zero tag equal
+    those after k replays of the captured step from a zero tag."""
+    chain.tag.zero_()
+    for _ in range(k):
+        chain()
+    torch.cuda.synchronize()
+    eager = chain.tag.clone(), chain.out.clone()
+    graph = probes.Captured(chain)
+    chain.tag.zero_()
+    for _ in range(k):
+        graph.replay()
+    torch.cuda.synchronize()
+    return all(map(torch.equal, eager, (chain.tag, chain.out)))
+
+
+def profile_chain_check() -> dict:
+    """Every chain of the op-profiling programs at its script's size and K:
+    label → its eager steps equal its replays."""
+    n14 = keycache.cached_session("bench_n14", seed=profile_fused.SEED,
+                                  galois_steps=[1])
+    deep = keycache.cached_session("ckks_deep_hi", seed=probe_n15.SEED,
+                                   galois_steps=probe_n15.GALOIS)
+    items = [(f"profile_fused:{label}", c, profile_fused.K)
+             for label, c in profile_fused.chains(n14, profile_fused.B)]
+    items += [(f"profile_hotpath:{label}", c, profile_hotpath.ITERS)
+              for label, c in profile_hotpath.chains(n14,
+                                                     profile_hotpath.BATCH)]
+    items += [(f"op_parts_chain:B={b} {label}", c, op_parts_chain.K)
+              for label, c, b in op_parts_chain.chains(n14)]
+    ops = bench_sweep.operands(n14)
+    items += [(f"bench_sweep:B={b} K={k}", bench_sweep.chain(n14, *ops, b), k)
+              for b in bench_sweep.BATCHES for k in (8, 32)]
+    items.append(("trace_op", trace_op.chain(n14, trace_op.BATCH), 2))
+    items += [(f"probe_n15:{label}", c, k)
+              for label, c, k, _ in probe_n15.chains_n15(deep)]
+    _, n15b = probe_n15.n15b(deep)
+    items += [(f"probe_n15b:{label}", c, k) for label, c, k, _ in n15b]
+    same = {}
+    for name, c, k in items:
+        same[name] = _eager_equals_graph(c, k)
+        if not same[name] or not c.out.any():
+            raise AssertionError(f"profile chain {name}: {k} eager steps "
+                                 "differ from the replays of its graph")
+    return same
+
+
+def phase_profiles(smi: str) -> dict:
+    """``python -m hetpu_torch.bench`` op-profiling programs (PROFILE_ARGV)
+    at the scripts' sizes: each script's labels printed, no device memory
+    grown, K1-K4 launched, the records written naming the card, the lsq
+    fit within LSQ_MAX_ERR; then every chain's eager steps against its
+    replays.  Returns the launches summed over the programs' runs."""
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(cuda_lib.launches, 0)
+    for argv in PROFILE_ARGV:
+        name = argv[0]
+        record_path = bench_workloads.OUT_DIR / f"{name}.json"
+        record_path.unlink(missing_ok=True)
+        text, seconds, launches = run_cli(bench_main, argv)
+        for ln in text.splitlines():
+            if ln.startswith("{") and json.loads(ln).get("grown_bytes"):
+                raise AssertionError(f"bench {argv}: device memory grew "
+                                     f"over the replays: {ln}")
+        _need(launches, K1_K4, f"bench {' '.join(argv)}")
+        lines = text.splitlines()
+        missing = [p for p in script_labels(name)
+                   if not any(re.match(p, ln) for ln in lines)]
+        record = json.loads(record_path.read_text())
+        if missing or record["card"] != smi:
+            raise AssertionError(f"bench {argv}: labels not printed "
+                                 f"{missing}, record {record_path}: "
+                                 f"{record.get('card')}")
+        if name == "probe_lsq_twice" and not record["max_err"] < LSQ_MAX_ERR:
+            raise AssertionError(f"probe_lsq_twice max_err "
+                                 f"{record['max_err']} >= {LSQ_MAX_ERR}")
+        for k, v in launches.items():
+            total[k] += v
+        log("profiles", argv=argv, seconds=round(seconds, 3),
+            launches=launches, record=str(record_path.relative_to(ROOT)),
+            lines=[ln for ln in lines if not ln.startswith('{"program"')],
+            card=smi)
+    same = profile_chain_check()
+    log("profile_chains", chains=len(same), same=all(same.values()),
+        card=smi)
+    log("profiles_phase", seconds=round(time.perf_counter() - t_phase, 3),
+        launches=total, card=smi)
+    return total
+
+
+# ----------------------------------------------------------------------
 # the parallel layer: SPMD ranks on the card (phase 19)
 # ----------------------------------------------------------------------
 
@@ -2701,6 +2830,7 @@ def main() -> int:
     demo_timings, demo_launches = phase_demos(rng, smi)
     timings.update(demo_timings)
     bench_launches = phase_bench(smi)
+    profile_launches = phase_profiles(smi)
     timings.update(phase_probe_kernels(rng))
     timings.update(par_timings)
     launches = {"default": default["launches"],
@@ -2708,6 +2838,7 @@ def main() -> int:
                 "probes": phase_probes(sess, smi),
                 **bfv_launches, **hi_launches, **app_launches,
                 "demos": demo_launches, "bench": bench_launches,
+                "profiles": profile_launches,
                 "parallel": par_launches}
     phase_host_cost(rng, smi)
     log("total", seconds=round(time.perf_counter() - start, 3))

@@ -26,7 +26,6 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import tempfile
 import time
 from pathlib import Path
@@ -35,14 +34,14 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from . import Chain, device_name, fold8, report, secondary, timed
+from . import (OUT_DIR, Chain, card_line, device_name, fold8, report,
+               secondary, timed)
 from ..core.context import Context
 from ..core.keys import KeyGenerator
 from ..core.params import chain_sweep, preset
 from ..utils.keycache import cached_session
 from ..utils.timer import Timer
 
-OUT_DIR = Path(__file__).resolve().parents[2] / "build" / "hetpu_torch"
 KEYGEN_PRESETS = {"bench_n14": "test_dnum", "ckks_deep_hi": "test_deep"}
 DEMOS = ("op", "elemwise_square", "matmul", "matpow", "batch_matmul_bfv",
          "batch_matmul_ckks", "sum_elems", "least_squares_2d",
@@ -61,16 +60,6 @@ SMALL_SIZES = {"sweep": "N=2^13, levels 2 and 6, K=2, reps 1",
 def default_out(small: bool) -> Path:
     return OUT_DIR / ("bench_workloads_small.json" if small
                       else "bench_workloads.json")
-
-
-def card_line(device: str) -> str | None:
-    """The card's name and power limit as nvidia-smi prints them."""
-    if device != "cuda":
-        return None
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
 def merge(out: Path, section: str, payload, device: str, small: bool):

@@ -88,6 +88,7 @@ class KeySwitchPlan:
     rinv: torch.Tensor           # [ℓ+1,1]  R^{-1} mod q_i
     rinv_shoup: torch.Tensor
     foreign_idx: tuple           # (np.ndarray, ...) per digit
+    foreign_tables: tuple        # (NttTables, ...) per digit's foreign basis
     foreign_cat_tables: NttTables  # all digits' foreign bases, concatenated
     dhat: torch.Tensor           # [ℓ+1,R]  (D_j/q_i) mod r
     dhat_shoup: torch.Tensor
@@ -261,6 +262,7 @@ class Context:
             digit_bounds=bounds,
             basis_tables=basis_tables,
             foreign_idx=foreign_idx,
+            foreign_tables=tuple(basis_tables.slice(f) for f in foreign_idx),
             foreign_cat_tables=basis_tables.slice(np.concatenate(foreign_idx)),
             q=self._t(_col(basis_primes)),
             qinv_neg=self._t(_col([((1 << 32) - nt.modinv(r, 1 << 32))

@@ -106,7 +106,7 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor,
     lo = (p - (hi - z)) + (s - z)
     f = hi.to(torch.float32)
     f64 = f.to(torch.float64)
-    inf = torch.tensor(float("inf"), dtype=torch.float32, device=f.device)
+    inf = torch.full_like(f, float("inf"))     # no host copy: capturable
     g = torch.nextafter(f, torch.where(hi > f64, inf, -inf))
     tie = (f64 + g.to(torch.float64)) == 2 * hi
     return torch.where(tie & (lo != 0) & ((lo > 0) == (g > f)), g, f)

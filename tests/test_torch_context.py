@@ -88,6 +88,10 @@ def _assert_plan_equal(got, want, path=""):
                     to_u32(g), np.asarray(w).astype(np.uint32), err_msg=where)
         elif dataclasses.is_dataclass(g):
             _assert_plan_equal(g, w, where + ".")
+        elif f.name == "foreign_tables":
+            assert len(g) == len(w), where
+            for a, b in zip(g, w):
+                _assert_tables_equal(a, b, arrays=not hasattr(b, "sub1"))
         elif f.name == "foreign_idx":
             assert len(g) == len(w)
             for a, b in zip(g, w):
@@ -116,6 +120,26 @@ def test_moddown_rescale_plan_equal(contexts, name, level):
     ctx, rctx = contexts[name]
     _assert_plan_equal(ctx.moddown_rescale_plan(level),
                        rctx.moddown_rescale_plan(level))
+
+
+@pytest.mark.parametrize("name,level", [("test_dnum", 7), ("bench_n14", 8)])
+def test_foreign_tables_equal(contexts, name, level):
+    """KeySwitchPlan.foreign_tables, one NTT table a digit over the key
+    basis minus the digit's own primes: hetpu's primes, and its flat
+    tables' twiddles and Shoup companions as u32 (at bench_n14 hetpu keeps
+    four-step tables, so its flat build of the same primes)."""
+    ctx, rctx = contexts[name]
+    ks, rks = ctx.keyswitch_plan(level), rctx.keyswitch_plan(level)
+    assert len(ks.foreign_tables) == len(rks.foreign_tables) == ks.num_digits
+    R = len(ks.basis_tables.primes)
+    for di, (t, rt) in enumerate(zip(ks.foreign_tables, rks.foreign_tables)):
+        lo, hi = ks.digit_bounds[di]
+        assert len(t.primes) == R - (hi - lo)
+        assert t.primes == rt.primes == tuple(
+            ks.basis_tables.primes[int(f)] for f in ks.foreign_idx[di])
+        _assert_tables_equal(t, ref_build_tables(t.n, t.primes), arrays=True)
+        if not hasattr(rt, "sub1"):
+            _assert_tables_equal(t, rt, arrays=True)
 
 
 def test_bench_n14_shapes(contexts):

@@ -40,6 +40,7 @@ from torch_ties import (TIES_DNUM, TIES_DNUM_CENTERED,
                         TIES_N14_TAIL_CENTERED)
 import torch_parallel_ranks as ranks
 import torch_demo_cases
+import torch_profile_cases
 
 pytestmark = pytest.mark.cuda
 
@@ -1117,3 +1118,37 @@ def test_bench_chain_graph_equals_eager(dev, name):
     assert torch.equal(graph.tag, eager.tag)
     assert torch.equal(graph.out, eager.out) and eager.out.any()
     assert r["launches"]["ntt"] > 0 and r["grown_bytes"] == 0
+
+
+@pytest.mark.parametrize("program", torch_profile_cases.PROGRAMS)
+def test_profile_chains_card_equal_cpu(dev, program):
+    """Each chain of an op-profiling program at --small (test_dnum, B=2,
+    K=3): K eager steps on the card leave the tag and last output of K
+    steps on the CPU (plain twins, the same keys and encryptions), and K
+    replays of the captured step leave the same."""
+    from hetpu_torch import probes
+    from hetpu_torch.core import random as port_rnd
+    cases = torch_profile_cases
+    seed = b"\x21" * 32
+    card = cases.port_chains(program, Session.create(
+        "test_dnum", seed=seed, galois_steps=[1]), (port_rnd,))
+    cpu = cases.port_chains(program, Session.create(
+        "test_dnum", seed=seed, galois_steps=[1], device="cpu"), (port_rnd,))
+    assert set(card) == set(cpu)
+    for label, c in card.items():
+        want = cpu[label]
+        if not hasattr(c, "tag"):          # probe_n15b's direct call
+            assert torch.equal(c().cpu(), want()), label
+            continue
+        for _ in range(cases.K):
+            c()
+            want()
+        assert torch.equal(c.tag.cpu(), want.tag), label
+        assert torch.equal(c.out.cpu(), want.out) and want.out.any(), label
+        graph = probes.Captured(c)
+        c.tag.zero_()
+        for _ in range(cases.K):
+            graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(c.tag.cpu(), want.tag), label
+        assert torch.equal(c.out.cpu(), want.out), label

@@ -75,6 +75,12 @@ def test_import_pulls_no_jax_and_builds_nothing(tmp_path):
         import hetpu_torch.bench, hetpu_torch.bench.__main__
         import hetpu_torch.bench.headline, hetpu_torch.bench.secondary
         import hetpu_torch.bench.workloads
+        import hetpu_torch.bench.profile_fused
+        import hetpu_torch.bench.profile_hotpath
+        import hetpu_torch.bench.op_parts_chain
+        import hetpu_torch.bench.bench_sweep, hetpu_torch.bench.probe_n15
+        import hetpu_torch.bench.probe_lsq_twice
+        import hetpu_torch.bench.trace_op
         from hetpu_torch import parallel
         from hetpu_torch.parallel import cp
         import torch
@@ -380,6 +386,47 @@ def test_hetpu_public_names_exist(name):
     assert not missing, f"{name}: the port lacks {missing}"
 
 
+# dataclass fields of hetpu's that the port lays out otherwise: the tp
+# plan's GSPMD-sharded and replicated halves are the port's TpShard
+FIELDS_NOT_PORTED = {("hetpu.parallel.tp", "TpKeySwitchPlan"):
+                     {"sharded", "repl"}}
+DATACLASS_MODULES = sorted(
+    name for name in HETPU_MODULES
+    if any(isinstance(n, ast.ClassDef) and any(
+        "dataclass" in ast.unparse(d) for d in n.decorator_list)
+        for n in ast.walk(ast.parse(
+            (REPO / (name.replace(".", "/") + ".py")).read_text()
+            if (REPO / (name.replace(".", "/") + ".py")).exists()
+            else (REPO / name.replace(".", "/") / "__init__.py")
+            .read_text()))))
+
+
+@pytest.mark.parametrize("name", DATACLASS_MODULES)
+def test_hetpu_plan_fields_exist(name):
+    """Every annotated field of every dataclass of a hetpu module exists
+    in the port's counterpart, save the stated exceptions (the classes
+    themselves are held by test_hetpu_public_names_exist)."""
+    import importlib
+    ref = importlib.import_module(name)
+    ports = [importlib.import_module(m) for m in MAPPED.get(
+        name, (name.replace("hetpu", "hetpu_torch", 1),))]
+    classes = {k: v for k, v in vars(ref).items()
+               if dataclasses.is_dataclass(v) and v.__module__ == name}
+    assert classes, name
+    missing = []
+    for k, cls in classes.items():
+        if (name, k) in DO_NOT_PORT:
+            continue
+        pmod, pk = RENAMED.get((name, k), (None, k))
+        where = [importlib.import_module(pmod)] if pmod else ports
+        got = next(getattr(m, pk) for m in where if hasattr(m, pk))
+        have = {f.name for f in dataclasses.fields(got)}
+        lost = {f.name for f in dataclasses.fields(cls)} - have \
+            - FIELDS_NOT_PORTED.get((name, k), set())
+        missing += [f"{k}.{f}" for f in sorted(lost)]
+    assert not missing, f"{name}: the port lacks {missing}"
+
+
 def test_exceptions_name_hetpus_own():
     """Every stated exception names something hetpu has."""
     import importlib
@@ -391,6 +438,10 @@ def test_exceptions_name_hetpus_own():
             obj = getattr(obj, part)
         assert ps <= _params(obj), (mod, qual)
     assert set(MAPPED) <= set(HETPU_MODULES)
+    for (mod, cls), names in FIELDS_NOT_PORTED.items():
+        fields = {f.name for f in dataclasses.fields(
+            getattr(importlib.import_module(mod), cls))}
+        assert names <= fields, (mod, cls)
 
 
 # ----------------------------------------------------------------------
