@@ -71,7 +71,13 @@ run exits non-zero without a result line):
      (N=2^15, 16 data primes, J=4, R=20) at one row, ckks_fft at 64 rows
      (K1 decompose INTT, forward NTT over the data primes and over the key
      basis, mod-down INTT; K2 and the K6 lift; K3 and K6 mod-down, fused
-     tail and, at g=2, pair; K4);
+     tail and, at g=2, pair; K4); last K7 ``tensor_product`` at the main
+     path's multiply and square (bench_n14 [8,2,9,N] → [8,3,9,N]) and at
+     BFV's products over bfv_batch's data basis and auxiliary basis B,
+     and K8 ``ks_tail`` at the bench_n14 level-8 tail (tail_src, tail_out),
+     relinearize's mod-down and rescale's divide (sub_mul) and the
+     rescale's lift of the last limb (lift_last), each also exact on edge
+     residues (0 and q−1 on every limb of the basis);
   5. goldens — Session "test_dnum" (seed 0x33) on the card:
      multiply_relin_rescale on golden_pins fused_a/fused_b = fused_out and
      rotate by 1 = fused_rot; golden_n14 rs_n14 through Evaluator.rescale;
@@ -80,12 +86,13 @@ run exits non-zero without a result line):
   6. main path — Session.create("bench_n14", seed 0x21) on the card,
      encrypt x and y at B=8, multiply_relin_rescale, decrypt: max error
      against x·y < 2e-3; the B=1 output equals the plain path on the CPU
-     with the same keys and inputs; K1–K4 were launched;
+     with the same keys and inputs; K1–K4, K7 and K8 were launched;
   7. time — that op at B=8 over 200 iterations (CUDA events) → ops/s;
   8. inference path — Session.create("bench_n14", seed 0x21,
      galois_steps 1..7): infer_step (8 diagonals, weight seed 7) on B=8
      encrypted vectors, decrypt: max error against infer_reference < 5e-3;
-     the B=1 output equals the CPU plain path; K1–K4 launched, K6 not.
+     the B=1 output equals the CPU plain path; K1–K4, K7 and K8
+     launched, K6 not.
      Then the same with centered_fbc=True (Session.from_wire on the same
      keys): error < 5e-3, B=1 equal to the CPU plain path, K6 launched,
      K2, K3 and the standalone K5 not, and no more K1 launches than the
@@ -99,8 +106,8 @@ run exits non-zero without a result line):
  11. BFV path — BfvSession.create("bfv_batch", seed 0x35, galois_steps
      [1]): B=8 slot vectors mod t through multiply_relin, rotate_rows(1)
      and mod_switch, each row decrypted exactly (Python ints), noise
-     budget > 0, the B=1 output equal to the CPU plain path, K1–K4
-     launched; multiply_relin timed (ops/s) and profiled, with the
+     budget > 0, the B=1 output equal to the CPU plain path, K1–K4, K7
+     and K8 launched; multiply_relin timed (ops/s) and profiled, with the
      precise-α conversions' device time and kernels;
  12. paired-prime path — Session.create("ckks_hi14", seed 0x36) at B=8 in
      both FBC modes: fused multiply_relin_rescale within 2e-9 of x·y (see
@@ -234,7 +241,7 @@ from hetpu_torch.bench import workloads as bench_workloads
 from hetpu_torch.bench.__main__ import main as bench_main
 from hetpu_torch.bfv import BfvSession
 from hetpu_torch.core import (centered_fbc, cuda_lib, fused_ntt, ip_kernel,
-                              nt, serial)
+                              ks_tail, nt, serial)
 from hetpu_torch.core.bfv import BfvScheme
 from hetpu_torch.core.centered_fbc import CenteredFbcPlan
 from hetpu_torch.core.ciphertext import Ciphertext
@@ -246,6 +253,8 @@ from hetpu_torch.core.ntt import (build_tables, ntt_fwd, ntt_fwd_mont,
                                   ntt_fwd_plain, ntt_inv, ntt_inv_plain)
 from hetpu_torch.core.params import chain_sweep, preset
 from hetpu_torch.core.rns import fbc_apply
+from hetpu_torch.core.tensor_product import (tensor_product,
+                                             tensor_product_plain)
 from hetpu_torch.demos.__main__ import main as demos_main
 from hetpu_torch.demos.math_operations import bench_he_all_chained
 from hetpu_torch.demos.offload_demos import CLIENT_DEMOS, _params_for
@@ -287,6 +296,10 @@ INT8_OPS_PER_S = 1.979e15      # H100 SXM int8 tensor cores, dense (data sheet)
 INT32_LANES_PER_SM = 64        # Hopper SM: 32-bit integer multiply lanes
 IMUL_PER_SHOUP = 3             # __umulhi, x*w, qe*q
 HOST_CALLS = 200               # calls enqueued back to back by host_us
+K1_K4 = ("ntt", "ntt_fwd_lifted", "ntt_fwd_fbc", "inner_product")
+# every kernel of a path that multiplies two ciphertexts, switches a key
+# and rescales (the default FBC mode)
+PATH_KERNELS = K1_K4 + ("tensor_product", "ks_tail")
 imul_per_s = 0.0               # set by phase_device from the SM clock
 
 
@@ -719,6 +732,118 @@ def ip_edges(rng) -> None:
                   lambda: ip_kernel.inner_product_plain(ext, k, ks, q))
 
 
+def edge_residues(rng, shape, primes) -> torch.Tensor:
+    """Uniform residues with 0 and q−1 at the first and last x of every
+    plane, and the last row all q−1 (every basis holds its largest prime,
+    so q−1 of it is among them)."""
+    q = np.array(primes, dtype=np.uint64).reshape(-1, 1)
+    x = rng.integers(0, 1 << 62, size=shape, dtype=np.uint64) % q
+    x[..., 0] = 0
+    x[..., -1] = (q - 1)[:, 0]
+    x.reshape(-1, *x.shape[-2:])[-1] = np.broadcast_to(q - 1, x.shape[-2:])
+    return from_u32(x, "cuda")
+
+
+def tp_compare(name, rng, primes, mc, square: bool = False) -> dict:
+    """K7 at [B, 2, L, N] over ``primes`` (``mc``: their q, R⁻¹, −q⁻¹),
+    timed on uniform residues, then exact on edge residues."""
+    n = 1 << 14
+    shape = (B, 2, len(primes), n)
+    x, y = residues(rng, shape, primes), residues(rng, shape, primes)
+    y = None if square else y
+    q, rinv, qn = mc["q"], mc["r_inv"], mc["qinv_neg"]
+    r = compare(name, lambda: tensor_product(x, y, q, rinv, qn),
+                lambda: tensor_product_plain(x, y, q, rinv),
+                [x] if square else [x, y])
+    xe, ye = edge_residues(rng, shape, primes), edge_residues(rng, shape,
+                                                              primes)
+    ye = None if square else ye
+    exact(f"{name} edges", lambda: tensor_product(xe, ye, q, rinv, qn),
+          lambda: tensor_product_plain(xe, ye, q, rinv))
+    return r
+
+
+def k7_cases(rng) -> dict:
+    """K7 at the main path's multiply (bench_n14 level 8, B=8), its square
+    (infer_step's square_relin_rescale) and BFV's products over bfv_batch's
+    data basis (7 primes) and its auxiliary basis B."""
+    ctx = Context(preset("bench_n14"))
+    bctx = Context(preset("bfv_batch"))
+    plans = BfvScheme(bctx)._lvl(BFV_LEVEL)
+    qb = {"q": plans["q_B"], "r_inv": plans["r_inv_B"],
+          "qinv_neg": plans["qinv_neg_B"]}
+    return {"tensor_product": tp_compare(
+                "tensor_product", rng, ctx.params.moduli, ctx.mont(LEVEL)),
+            "tensor_product_square": tp_compare(
+                "tensor_product square", rng, ctx.params.moduli,
+                ctx.mont(LEVEL), square=True),
+            "tensor_product_bfv_q": tp_compare(
+                "tensor_product bfv data basis", rng,
+                bctx.params.moduli[: BFV_LEVEL + 1], bctx.mont(BFV_LEVEL)),
+            "tensor_product_bfv_b": tp_compare(
+                "tensor_product bfv basis B", rng, plans["B_primes"], qb)}
+
+
+def k8_cases(rng) -> dict:
+    """K8 at the bench_n14 B=8 level-8 tail (L=9, g=1, k=5): tail_src
+    [8,2,14,N] + c01 → [8,2,6,N], tail_out → [8,2,8,N]; sub_mul at
+    relinearize's mod-down [8,2,14,N] → [8,2,9,N] and at rescale's divide
+    [8,2,9,N] → [8,2,8,N], with lift_last [8,2,1,N] → [8,2,8,N].  Each
+    timed on uniform residues (the bound counts only the planes the
+    function reads), then exact on edge residues."""
+    ctx = Context(preset("bench_n14"))
+    n, L, k, g = ctx.params.poly_degree, LEVEL + 1, ctx.num_special, 1
+    basis = ctx.params.moduli[:L] + ctx.params.special_moduli
+    mdr = ctx.moddown_rescale_plan(LEVEL)
+    md = ctx.keyswitch_plan(LEVEL).moddown
+    rs = ctx.rescale_plan(LEVEL)
+    q = ctx.tables(LEVEL).q
+    dst = ctx.params.moduli[:L - g]
+
+    def inputs(make):
+        return {"acc": make(rng, (B, 2, L + k, n), basis),
+                "ct": make(rng, (B, 3, L, n), ctx.params.moduli[:L]),
+                "r_tail": make(rng, (B, 2, L - g, n), dst),
+                "r_md": make(rng, (B, 2, L, n), ctx.params.moduli[:L]),
+                "data": make(rng, (B, 2, L, n), ctx.params.moduli[:L]),
+                "last": make(rng, (B, 2, 1, n), ctx.params.moduli[L - 1:L])}
+
+    def calls(t):
+        acc, ct = t["acc"], t["ct"]
+        return {
+            "ks_tail_out": (
+                (ks_tail.tail_out, ks_tail.tail_out_plain),
+                (acc, ct, t["r_tail"], mdr.p_mod, mdr.p_mod_shoup,
+                 mdr.pq_inv, mdr.pq_inv_shoup, q),
+                [acc[..., :L - g, :], ct[..., :2, :L - g, :], t["r_tail"]]),
+            "ks_tail_src": (
+                (ks_tail.tail_src, ks_tail.tail_src_plain),
+                (acc, ct, g, mdr.p_mod, mdr.p_mod_shoup, q),
+                [acc[..., L - g:, :], ct[..., :2, L - g:, :]]),
+            "ks_tail_sub_mul_moddown": (
+                (ks_tail.sub_mul, ks_tail.sub_mul_plain),
+                (acc, t["r_md"], md.p_inv, md.p_inv_shoup, md.dst_tables.q),
+                [acc[..., :L, :], t["r_md"]]),
+            "ks_tail_sub_mul_rescale": (
+                (ks_tail.sub_mul, ks_tail.sub_mul_plain),
+                (t["data"], t["r_tail"], rs.src_inv, rs.src_inv_shoup,
+                 rs.dst_tables.q),
+                [t["data"][..., :L - 1, :], t["r_tail"]]),
+            "ks_tail_lift_last": (
+                (ks_tail.lift_last, ks_tail.lift_last_plain),
+                (t["last"], rs.half, rs.src_tables.q, rs.dst_tables.q,
+                 rs.mu, rs.half_mod),
+                [t["last"]])}
+
+    out = {}
+    for name, ((fn, plain), args, io) in calls(inputs(residues)).items():
+        out[name] = compare(name, lambda: fn(*args), lambda: plain(*args),
+                            io)
+    for name, ((fn, plain), args, _) in calls(inputs(edge_residues)).items():
+        exact(f"{name} edges", lambda: fn(*args), lambda: plain(*args))
+    return out
+
+
 def phase_kernels(rng) -> dict:
     ctx = Context(preset("bench_n14"))
     n = ctx.params.poly_degree
@@ -771,6 +896,8 @@ def phase_kernels(rng) -> dict:
         "ntt_fwd_centered near-tie columns", y_tie, plan, dt)
     out.update(slice6_kernel_cases(rng))
     out.update(app_kernel_cases(rng))
+    out.update(k7_cases(rng))
+    out.update(k8_cases(rng))
     for name, r in out.items():
         log("kernel_vs_plain", kernel=name, **r)
     return out
@@ -951,8 +1078,7 @@ def phase_main_path(rng):
     err = float(np.abs(dec - x * y).max())
     if not err < 2e-3:
         raise AssertionError(f"bench_n14 decrypt error {err} >= 2e-3")
-    missing = [k for k in ("ntt", "ntt_fwd_lifted", "ntt_fwd_fbc",
-                           "inner_product") if launches[k] <= 0]
+    missing = [k for k in PATH_KERNELS if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
 
@@ -1030,8 +1156,7 @@ def phase_infer(rng):
         galois_keys=len(sess.gk.elts))
     default = _infer_run(sess, ct, x, diags, act, sess, "default")
     dl = default["launches"]
-    missing = [k for k in ("ntt", "ntt_fwd_lifted", "ntt_fwd_fbc",
-                           "inner_product") if dl[k] <= 0]
+    missing = [k for k in PATH_KERNELS if dl[k] <= 0]
     if missing or dl["ntt_fwd_centered"] or dl["centered_fbc"]:
         raise AssertionError(f"default inference path: kernels not "
                              f"launched {missing}, launches {dl}")
@@ -1041,7 +1166,8 @@ def phase_infer(rng):
     cl = centered["launches"]
     # every lift and conversion fused into ntt_fwd_centered: no standalone
     # K5, no K2/K3, and no forward NTT after a conversion
-    if cl["ntt_fwd_centered"] <= 0 or cl["inner_product"] <= 0 \
+    if any(cl[k] <= 0 for k in ("ntt_fwd_centered", "inner_product",
+                                "tensor_product", "ks_tail")) \
             or cl["ntt"] != dl["ntt"] or any(
                 cl[k] for k in ("centered_fbc", "ntt_fwd_lifted",
                                 "ntt_fwd_fbc")):
@@ -1169,8 +1295,7 @@ def phase_bfv(rng, smi: str):
     budget = sess.noise_budget(out.with_(data=out.data[0]))
     if not budget > 0:
         raise AssertionError(f"bfv: noise budget {budget}")
-    _need(mr_launches, ("ntt", "ntt_fwd_lifted", "ntt_fwd_fbc",
-                        "inner_product"), "bfv multiply_relin",
+    _need(mr_launches, PATH_KERNELS, "bfv multiply_relin",
           absent=("ntt_fwd_centered", "centered_fbc"))
     # B=1: the card's output equals the plain path on the CPU (same keys)
     a1 = a.with_(data=a.data[0].contiguous())
@@ -1265,11 +1390,11 @@ def phase_hi(rng, smi: str) -> dict:
                                  f"{HI_SAME})")
         for name, lc in (("fused", lf), ("standalone", ls)):
             if mode == "default":
-                _need(lc, ("ntt", "ntt_fwd_lifted", "ntt_fwd_fbc",
-                           "inner_product"), f"hi {mode} {name}",
+                _need(lc, PATH_KERNELS, f"hi {mode} {name}",
                       absent=("ntt_fwd_centered", "centered_fbc"))
             else:
-                _need(lc, ("ntt", "ntt_fwd_centered", "inner_product"),
+                _need(lc, ("ntt", "ntt_fwd_centered", "inner_product",
+                           "tensor_product", "ks_tail"),
                       f"hi {mode} {name}", absent=(
                           "ntt_fwd_lifted", "ntt_fwd_fbc", "centered_fbc"))
         a1 = a.with_(data=a.data[0].contiguous())
@@ -1399,8 +1524,7 @@ def phase_least_squares(smi: str) -> dict:
     err = max(abs(a - ea), abs(b - eb))
     if not (np.isfinite([a, b]).all() and err < LSQ_ERR):
         raise AssertionError(f"least squares: error {err} (bound {LSQ_ERR})")
-    _need(launches, ("ntt", "ntt_fwd_lifted", "ntt_fwd_fbc",
-                     "inner_product"), "least squares",
+    _need(launches, PATH_KERNELS, "least squares",
           absent=("ntt_fwd_centered", "centered_fbc"))
     log("least_squares", preset="ckks_deep_hi", points=n, inv_iters=6,
         a=a, b=b, expected=[ea, eb], max_err=err, bound=LSQ_ERR,
@@ -1442,8 +1566,7 @@ def phase_matmul128(smi: str) -> dict:
     err = float(np.abs(got - A @ Bm).max())
     if not (np.isfinite(got).all() and err < MATMUL_ERR):
         raise AssertionError(f"matmul128: error {err} (bound {MATMUL_ERR})")
-    _need(launches, ("ntt", "ntt_fwd_lifted", "ntt_fwd_fbc",
-                     "inner_product"), "matmul128",
+    _need(launches, K1_K4 + ("ks_tail",), "matmul128",
           absent=("ntt_fwd_centered", "centered_fbc"))
     log("matmul128", preset="bench_n14", d=d, chunk=chunk, max_err=err,
         bound=MATMUL_ERR, setup_seconds=round(setup, 3), seconds=seconds,
@@ -1485,8 +1608,7 @@ def phase_bfft(smi: str) -> dict:
     err = max(errs)
     if not (fout.data.shape[0] == nct and err < BFFT_ERR):
         raise AssertionError(f"bfft: error {err} (bound {BFFT_ERR})")
-    _need(launches, ("ntt", "ntt_fwd_lifted", "ntt_fwd_fbc",
-                     "inner_product"), "bfft",
+    _need(launches, K1_K4 + ("ks_tail",), "bfft",
           absent=("ntt_fwd_centered", "centered_fbc"))
     log("bfft", preset="ckks_fft", n=n, cts=nct, max_err=err, bound=BFFT_ERR,
         setup_seconds=round(setup, 3), seconds_first=first,
@@ -1645,8 +1767,8 @@ def phase_server(smi: str) -> dict:
         if not (np.isfinite(err) and err < bound):
             raise AssertionError(f"server {name}: error {err} (bound {bound},"
                                  f" {why})")
-        _need(launches, ("ntt", "inner_product") if name != "fft"
-              else ("ntt",), f"server {name}")
+        _need(launches, ("ntt", "inner_product", "ks_tail")
+              if name != "fft" else ("ntt",), f"server {name}")
         log("server", workload=name, preset=pname, transport=kind,
             max_err=err, bound=bound, bound_source=why,
             client_setup_seconds=round(setup, 3), round_trip_seconds=seconds,
@@ -1893,7 +2015,6 @@ DEMO_BOUNDS = {
 # the demos that switch no key: the coefficient FFT (plaintext multiplies
 # and rescales)
 NO_KEYSWITCH = {("fft", "fft"), ("client_server_rookie", "fft")}
-K1_K4 = ("ntt", "ntt_fwd_lifted", "ntt_fwd_fbc", "inner_product")
 NUMBER = re.compile(r"[-+]?(?:\d+\.\d*|\.\d+|\d+)(?:[eE][-+]?\d+)?j?")
 
 
@@ -2116,22 +2237,22 @@ def phase_demos(rng, smi: str) -> tuple[dict, dict]:
         text, seconds, launches, peak = run_demo([suite, name])
         values = demo_values(f"demo {suite} {name}", text,
                              DEMO_BOUNDS.get((suite, name)))
-        _need(launches, ("ntt",) if (suite, name) in NO_KEYSWITCH else K1_K4,
-              f"demo {suite} {name}",
+        _need(launches, ("ntt",) if (suite, name) in NO_KEYSWITCH
+              else K1_K4 + ("ks_tail",), f"demo {suite} {name}",
               absent=("ntt_fwd_centered", "centered_fbc"))
         log("demo", suite=suite, name=name, preset=pname, seconds=seconds,
             **values, printed=_printed_lines(text), launches=launches,
             peak_device_bytes=peak, card=smi)
         add(launches)
     text, seconds, launches, peak = run_demo(["math_operations", "bench_all"])
-    _need(launches, K1_K4, "demo math_operations bench_all")
+    _need(launches, PATH_KERNELS, "demo math_operations bench_all")
     log("demo", suite="math_operations", name="bench_all",
         preset=f"chain_sweep N={SWEEP_N} levels {SWEEP_LO}..{SWEEP_HI}",
         seconds=seconds, launches=launches, peak_device_bytes=peak, card=smi)
     add(launches)
     demo_sweep(text, smi)
     add(demo_tcp(smi))
-    _need(total, K1_K4, "the demos")
+    _need(total, PATH_KERNELS, "the demos")
     timings = demo_kernel_cases(rng)
     log("demos", seconds=round(time.perf_counter() - t_phase, 3),
         launches=total, key_cache=str(DEMO_KEYS.relative_to(ROOT)), card=smi)
@@ -2240,8 +2361,8 @@ def phase_bench(smi: str) -> dict:
                  ["workloads", "--only", "secondary", "--out",
                   str(BENCH_OUT)]):
         lines, seconds, launches = run_bench(argv)
-        _need(launches, ("ntt",) if "keygen" in argv else K1_K4,
-              f"bench {' '.join(argv)}")
+        _need(launches, ("ntt",) if "keygen" in argv
+              else K1_K4 + ("ks_tail",), f"bench {' '.join(argv)}")
         metrics = [ln for ln in lines if "metric" in ln]
         if argv[0] in want and [m["metric"] for m in metrics] \
                 != want[argv[0]]:
@@ -2368,7 +2489,7 @@ def phase_profiles(smi: str) -> dict:
             if ln.startswith("{") and json.loads(ln).get("grown_bytes"):
                 raise AssertionError(f"bench {argv}: device memory grew "
                                      f"over the replays: {ln}")
-        _need(launches, K1_K4, f"bench {' '.join(argv)}")
+        _need(launches, K1_K4 + ("ks_tail",), f"bench {' '.join(argv)}")
         lines = text.splitlines()
         missing = [p for p in script_labels(name)
                    if not any(re.match(p, ln) for ln in lines)]
@@ -2716,8 +2837,7 @@ def phase_parallel(smi: str) -> tuple[dict, dict]:
             raise AssertionError(f"bucketed_matvec at rot {w} differs from "
                                  "rot 1")
     launches = runs[2]["launches"]
-    missing = [k for k in ("peer_permute", "ntt", "ntt_fwd_lifted",
-                           "ntt_fwd_fbc", "inner_product")
+    missing = [k for k in ("peer_permute",) + PATH_KERNELS
                if launches[k] <= 0]
     if missing or runs[2]["served"] != B:
         raise AssertionError(f"parallel path: not launched {missing}, "
@@ -2797,7 +2917,22 @@ KERNELS = [
     ("peer_permute", "hetpu_torch/csrc/peer.cu", "SNIPPETS.md:39",
      tuple(f"peer_permute_{s}_n{w}" for s in ("snippet", "butterfly")
            for w in (2, 4)), "parallel"),
+    # hetpu's jnp arithmetic that XLA fuses under the evaluator's jax.jit
+    # (hetpu/core/evaluator.py:48-59), not a pl.pallas_call: the Karatsuba
+    # multiply (:117; square :150) and the tails of _relin_rescale_fused
+    # (:410), _mod_down (:455) and _div_round_last (:482)
+    ("tensor_product", "hetpu_torch/csrc/tensor_product.cu",
+     "hetpu/core/evaluator.py:117",
+     ("tensor_product", "tensor_product_square", "tensor_product_bfv_q",
+      "tensor_product_bfv_b"), "default"),
+    ("ks_tail", "hetpu_torch/csrc/ks_tail.cu", "hetpu/core/evaluator.py:410",
+     ("ks_tail_out", "ks_tail_src", "ks_tail_sub_mul_moddown",
+      "ks_tail_sub_mul_rescale", "ks_tail_lift_last"), "default"),
 ]
+# the other sites each row stands for (hetpu's fused jnp code)
+ALSO_REPLACES = {"tensor_product": ["hetpu/core/evaluator.py:150"],
+                 "ks_tail": ["hetpu/core/evaluator.py:455",
+                             "hetpu/core/evaluator.py:482"]}
 
 
 CASE_KEYS = ("shape_in", "shape_out", "ms", "graph_ms", "plain_ms",
@@ -2847,6 +2982,7 @@ def main() -> int:
         r = timings[cases[0]]
         rows.append({"name": kname, "route": "cuda", "source": src,
                      "replaces": replaces,
+                     "replaces_also": ALSO_REPLACES.get(kname, []),
                      "launches": launches[path][kname],
                      "launches_by_path": {p: c[kname]
                                           for p, c in launches.items()},

@@ -4,11 +4,11 @@
 ``multiply_relin_rescale`` at bench_n14 (seed 0x21…, galois [1]) B=32, its
 output's ``[..., :1, :1, :8]`` folded into the next input
 (:func:`..bench.fold_rows8`): one warm-up step, then 5 chained eager steps
-under ``torch.profiler`` (:func:`..utils.profiling.trace`), the Chrome
+under ``torch.profiler`` (:func:`..utils.profiling.profiled`), the Chrome
 trace written to ``build/hetpu_torch/trace_op/trace.json``.  Prints the
 device µs a step of the 15 costliest kernels by name, the package
-kernels' share of device time and the device's busy share of the traced
-wall time, then hetpu's ``trace done``.  The script's choice of a TPU NTT
+kernels' share of device time, the device's busy share of the traced
+wall time and the device kernels a step, then hetpu's ``trace done``.  The script's choice of a TPU NTT
 backend (``mxu_ntt._FORCE``) has no counterpart here.
 """
 
@@ -22,7 +22,7 @@ import torch
 
 from . import OUT_DIR, bench_sweep, meta, write_record
 from ..utils.keycache import cached_session
-from ..utils.profiling import trace
+from ..utils.profiling import profiled
 
 PRESET, SMALL_PRESET = "bench_n14", "test_dnum"
 SEED = b"\x21" * 32
@@ -34,7 +34,9 @@ PACKAGE_KERNELS = (("centered_fbc_kernel", "centered_fbc"),
                    ("centered_kernel", "ntt_fwd_centered"),
                    ("lifted_kernel", "ntt_fwd_lifted"),
                    ("fbc_kernel", "ntt_fwd_fbc"),
-                   ("ip_kernel", "inner_product"), ("ntt_kernel", "ntt"))
+                   ("ip_kernel", "inner_product"),
+                   ("tensor_product_kernel", "tensor_product"),
+                   ("ks_tail_kernel", "ks_tail"), ("ntt_kernel", "ntt"))
 
 
 def chain(sess, batch: int):
@@ -43,16 +45,17 @@ def chain(sess, batch: int):
     return bench_sweep.chain(sess, *bench_sweep.operands(sess), batch)
 
 
-def device_us(prof, steps: int) -> dict:
-    """Device µs a step by kernel name, costliest first (empty without a
-    card)."""
+def device_us(prof, steps: int) -> tuple[dict, float]:
+    """Device µs a step by kernel name, costliest first, and device
+    kernels a step (empty and 0 without a card)."""
     from torch.autograd import DeviceType
-    out = {}
+    out, count = {}, 0
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
             us = getattr(e, "self_device_time_total", 0.0) / steps
             out[e.key] = out.get(e.key, 0.0) + us
-    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+            count += e.count
+    return dict(sorted(out.items(), key=lambda kv: -kv[1])), count / steps
 
 
 def package_name(kernel: str) -> str | None:
@@ -74,13 +77,13 @@ def run(small: bool, device: str, out=None, steps: int | None = None) -> dict:
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     sync()
     c.tag.zero_()
-    with trace(str(trace_dir)) as prof:
+    with profiled(str(trace_dir)) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             c()
         sync()
         wall_us = (time.perf_counter() - t0) * 1e6 / steps
-    kernels = device_us(prof, steps)
+    kernels, per_step = device_us(prof, steps)
     total = sum(kernels.values())
     ours = sum(us for k, us in kernels.items() if package_name(k))
     for k, us in list(kernels.items())[:TOP]:
@@ -90,6 +93,7 @@ def run(small: bool, device: str, out=None, steps: int | None = None) -> dict:
                "device_us_per_step": total if kernels else None,
                "package_share": ours / total if total else None,
                "busy_share": total / wall_us if kernels else None,
+               "kernels_per_step": per_step if kernels else None,
                "top": dict(list(kernels.items())[:TOP]),
                "trace": str(trace_dir / "trace.json")}
     print(json.dumps({k: v for k, v in summary.items() if k != "top"}),

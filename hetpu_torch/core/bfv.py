@@ -19,11 +19,14 @@ matmul, batch_matmul_bfv, matpow) and its ``invariant_noise_budget``.
   ``_div_round_last``).
 
 On the card the transforms run in the ``ntt`` kernel (K1) over the data,
-auxiliary and t-factor bases, and relinearize adds K2–K4 (or K6 with
-``centered_fbc``); the precise-α conversions, the tensor products and the
-Shoup multiplies stay plain PyTorch (the reference runs them outside any
-Pallas kernel too).  Montgomery products take R⁻¹ (``mont_mul(a, b, q,
-r_inv)``); residues travel to the host through ``modular.to_u32``.
+auxiliary and t-factor bases, the tensor products over both in
+``tensor_product`` (K7), mod_switch's divide and relinearize's mod-down
+tail in ``ks_tail`` (K8), and relinearize adds K2–K4 (or K6 with
+``centered_fbc``); the precise-α conversions and the HPS scaling's Shoup
+multiplies stay plain PyTorch (the reference runs them outside any Pallas
+kernel too).  Plain Montgomery products take R⁻¹ (``mont_mul(a, b, q,
+r_inv)``), the kernel −q⁻¹; residues travel to the host through
+``modular.to_u32``.
 """
 
 from __future__ import annotations
@@ -35,12 +38,13 @@ from . import galois, nt
 from .ciphertext import Ciphertext, Plaintext
 from .context import Context
 from .encrypt import Encryptor
-from .evaluator import Evaluator, _div_round_last, tensor_product
+from .evaluator import Evaluator, _div_round_last
 from .modular import (from_u32, mod_add, mod_sub, mont_constants, mont_mul,
                       shoup_companion, shoup_mul, shoup_precompute, to_u32)
 from .ntt import build_tables, ntt_fwd, ntt_fwd_mont, ntt_inv
 from .params import Scheme
 from .rns import fbc_apply, make_fbc
+from .tensor_product import tensor_product
 
 
 def _col(xs, dt=np.uint32):
@@ -142,6 +146,7 @@ class BfvScheme:
             "tables_B": build_tables(n, B_primes, dev),
             "q_B": t(mont_B["q"]),
             "r_inv_B": t(mont_B["r_inv"]),
+            "qinv_neg_B": t(mont_B["qinv_neg"]),
             "delta_mod_q": t(delta_mod_q),
             "delta_shoup": t(shoup_precompute(delta_mod_q, _col(Q_primes))),
             "t_mod_qb": t(t_mod_qb),
@@ -394,8 +399,10 @@ class BfvScheme:
             return ntt_fwd_mont(ext, tables_B)           # [parts, K, N] Mont
 
         a_b, b_b = to_b(a), to_b(b)
-        prod_q = tensor_product(a.data, b.data, mc_q["q"], mc_q["r_inv"])
-        prod_b = tensor_product(a_b, b_b, plans["q_B"], plans["r_inv_B"])
+        prod_q = tensor_product(a.data, b.data, mc_q["q"], mc_q["r_inv"],
+                                mc_q["qinv_neg"])
+        prod_b = tensor_product(a_b, b_b, plans["q_B"], plans["r_inv_B"],
+                                plans["qinv_neg_B"])
 
         # coefficient domain, standard form, both bases
         cq = ntt_inv(prod_q, tabs_q, strip_mont=True)

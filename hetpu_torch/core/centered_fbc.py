@@ -48,7 +48,7 @@ class CenteredFbcPlan:
     folded in last."""
 
     def __init__(self, src_primes, dst_primes, C, alpha_coeff=None,
-                 extra=None, *, device):
+                 extra=None, *, device="cuda"):
         C = np.asarray(C, dtype=np.uint64)
         S, F = C.shape
         if len(src_primes) != S or len(dst_primes) != F:

@@ -9,7 +9,8 @@ repository root; the library's file name carries a hash of the sources
 and flags, so an edited source rebuilds.
 
 Each kernel wrapper (``ntt.py``, ``fused_ntt.py``, ``ip_kernel.py``,
-``centered_fbc.py``, ``parallel/peer.py``, and the probes' ``copy.py``,
+``centered_fbc.py``, ``tensor_product.py``, ``ks_tail.py``,
+``parallel/peer.py``, and the probes' ``copy.py``,
 ``overhead2.py``, ``dot.py`` and ``kernel_parts.py``) checks its tensors,
 allocates outputs with ``torch.empty`` (``peer.py`` stores into exchange
 buffers the library allocates), launches on
@@ -42,6 +43,7 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # kernel name → launches made by its wrapper (one per kernel launch)
 launches = {"ntt": 0, "ntt_fwd_lifted": 0, "ntt_fwd_fbc": 0,
             "ntt_fwd_centered": 0, "inner_product": 0, "centered_fbc": 0,
+            "tensor_product": 0, "ks_tail": 0,
             "copy_planes": 0, "muladd_u32": 0, "dot_i8": 0,
             "plane_parts": 0, "peer_permute": 0}
 
@@ -67,6 +69,21 @@ _SIGNATURES = {
                                _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     # ext, k, ks, q, out, B, J, R, n, bt, stream
     "hetpu_inner_product": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, y, q, qinv_neg, out, rows, L, n, square, stream
+    "hetpu_tensor_product": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # acc, acc_parts, acc_limbs, c, c_parts, c_limbs, out, rows, P, Lo, g,
+    # off, n, q, p_mod, p_mod_shoup, stream
+    "hetpu_ks_tail_src": (_P, _I, _I, _P, _I, _I, _P, _I, _I, _I, _I, _I,
+                          _I, _P, _P, _P, _P),
+    # acc, acc_parts, acc_limbs, c, c_parts, c_limbs, r, out, rows, P, Lo,
+    # n, q, p_mod, p_mod_shoup, w, w_shoup, stream
+    "hetpu_ks_tail_out": (_P, _I, _I, _P, _I, _I, _P, _P, _I, _I, _I, _I,
+                          _P, _P, _P, _P, _P, _P),
+    # x, x_limbs, r, out, rows, Lo, n, q, w, w_shoup, stream
+    "hetpu_ks_tail_sub_mul": (_P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P),
+    # last, out, rows, Lo, n, half, q_src, q, mu, half_mod, stream
+    "hetpu_ks_tail_lift_last": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
+                                _P),
     # y, out, rows, S, F, n, consts, has_alpha, has_extra, stream
     "hetpu_centered_fbc": (_P, _P, _I, _I, _I, _I, _P, _I, _I, _P),
     # x, out, R, L, e4, rb, lb, stream

@@ -13,9 +13,10 @@ bit-exact with its reference twin.
 On a CUDA tensor the transforms run in hand-written kernels (``ntt``,
 ``ntt_fwd_lifted``, ``ntt_fwd_fbc``, ``inner_product``, and with
 ``centered_fbc=True`` ``ntt_fwd_centered`` in place of the two fused
-ones); the elementwise steps between them (Karatsuba multiply, Galois
-gathers, Shoup multiplies, concatenations, mod add/sub) stay plain
-PyTorch.
+ones), and so do the ct·ct product (``tensor_product``) and the
+mod-down and rescale tails (``ks_tail``); the other elementwise steps
+(Galois gathers, the plaintext and digit Shoup multiplies,
+concatenations, mod add/sub) stay plain PyTorch.
 
 ``centered_fbc=True`` is the port's spelling of the reference's
 ``HETPU_MXU_FBC=1``: the key-switch digit lift and every α-corrected base
@@ -29,14 +30,14 @@ from __future__ import annotations
 
 import torch
 
-from . import fused_ntt, galois, ip_kernel
+from . import fused_ntt, galois, ip_kernel, ks_tail
 from .centered_fbc import CenteredFbcPlan
 from .ciphertext import Ciphertext, Plaintext, check_add_compat
 from .context import Context, KeySwitchPlan, RescalePlan
 from .keys import GaloisKeys, KSwitchKey, RelinKeys
-from .modular import (barrett_reduce_u32, mod_add, mod_neg, mod_sub,
-                      mont_mul, shoup_mul)
+from .modular import mod_add, mod_neg, mod_sub, shoup_mul
 from .ntt import ntt_fwd_mont, ntt_inv
+from .tensor_product import tensor_product
 
 
 class Evaluator:
@@ -112,20 +113,15 @@ class Evaluator:
             raise ValueError(f"multiply: level {a.level} vs {b.level}")
         mc = self.ctx.mont(a.level)
         return Ciphertext(data=tensor_product(a.data, b.data, mc["q"],
-                                              mc["r_inv"]),
+                                              mc["r_inv"], mc["qinv_neg"]),
                           level=a.level, scale=a.scale * b.scale)
 
     def square(self, a: Ciphertext) -> Ciphertext:
         if a.num_parts != 2:
             raise ValueError("square requires a 2-part input")
         mc = self.ctx.mont(a.level)
-        q, rinv = mc["q"], mc["r_inv"]
-        c0, c1 = a.data[..., 0, :, :], a.data[..., 1, :, :]
-        t0 = mont_mul(c0, c0, q, rinv)
-        t2 = mont_mul(c1, c1, q, rinv)
-        t01 = mont_mul(c0, c1, q, rinv)
-        t1 = mod_add(t01, t01, q)
-        return Ciphertext(data=torch.stack([t0, t1, t2], dim=-3),
+        return Ciphertext(data=tensor_product(a.data, None, mc["q"],
+                                              mc["r_inv"], mc["qinv_neg"]),
                           level=a.level, scale=a.scale * a.scale)
 
     # ------------------------------------------------------------------
@@ -319,23 +315,22 @@ class Evaluator:
         if ct3.num_parts != 3:
             raise ValueError("relin+rescale expects a 3-part ciphertext")
         level = ct3.level
-        L = level + 1
         g = self.ctx.params.rescale_group
         plan = self.ctx.moddown_rescale_plan(level)
         acc = self._inner_product_raw(
             self._decompose(ct3.data[..., 2, :, :], level), level, rk.key)
-        c01 = ct3.data[..., :2, :, :]
         q = self.ctx.tables(level).q
-        w_data = mod_add(acc[..., :L, :],
-                         shoup_mul(c01, plan.p_mod, plan.p_mod_shoup, q), q)
-        src = torch.cat([w_data[..., L - g: L, :], acc[..., L:, :]], dim=-2)
+        # w = acc + c01·P over the L data limbs: its last g are the
+        # divide's sources, its first L−g the divide's operand
+        src = ks_tail.tail_src(acc, ct3.data, g, plan.p_mod,
+                               plan.p_mod_shoup, q)
         u = ntt_inv(src, plan.src_tables, strip_mont=True,
                     extra=plan.fbc.inv_punit)
         r_m = _fbc_fwd_mont(u, plan.fbc, plan.dst_tables,
                             self._centered(plan.fbc))
-        q_dst = plan.dst_tables.q
-        out = shoup_mul(mod_sub(w_data[..., : L - g, :], r_m, q_dst),
-                        plan.pq_inv, plan.pq_inv_shoup, q_dst)
+        out = ks_tail.tail_out(acc, ct3.data, r_m, plan.p_mod,
+                               plan.p_mod_shoup, plan.pq_inv,
+                               plan.pq_inv_shoup, q)
         prod = 1.0
         for qd in self.ctx.params.moduli[level - g + 1: level + 1]:
             prod *= qd
@@ -354,44 +349,16 @@ class Evaluator:
         return self.rescale(self.multiply_plain(ct, pt))
 
 
-def tensor_product(x: torch.Tensor, y: torch.Tensor, q: torch.Tensor,
-                   r_inv: torch.Tensor) -> torch.Tensor:
-    """Part-wise product of Montgomery-NTT polys x [..., ka, L, N] and y
-    [..., kb, L, N]: out_k = Σ_{i+j=k} x_i·y_j, [..., ka+kb−1, L, N]; the
-    2×2 case uses Karatsuba (3 modular multiplies).  BFV's multiply runs
-    it over the data basis and over its auxiliary basis."""
-    ka, kb = x.shape[-3], y.shape[-3]
-    if ka == 2 and kb == 2:
-        c0, c1 = x[..., 0, :, :], x[..., 1, :, :]
-        d0, d1 = y[..., 0, :, :], y[..., 1, :, :]
-        t0 = mont_mul(c0, d0, q, r_inv)
-        t2 = mont_mul(c1, d1, q, r_inv)
-        t1 = mod_sub(
-            mod_sub(mont_mul(mod_add(c0, c1, q), mod_add(d0, d1, q), q,
-                             r_inv), t0, q),
-            t2, q)
-        return torch.stack([t0, t1, t2], dim=-3)
-    parts = []
-    for k in range(ka + kb - 1):
-        acc = None
-        for i in range(max(0, k - kb + 1), min(ka, k + 1)):
-            t = mont_mul(x[..., i, :, :], y[..., k - i, :, :], q, r_inv)
-            acc = t if acc is None else mod_add(acc, t, q)
-        parts.append(acc)
-    return torch.stack(parts, dim=-3)
-
-
 def _mod_down(acc: torch.Tensor, md, k: int,
               centered: CenteredFbcPlan | None = None) -> torch.Tensor:
     """Divide a key-basis accumulator [..., parts, n_data+k, N] (Montgomery
     NTT) by P = ∏ of the k special primes, landing on the data basis:
     centered FBC of the special limbs + subtract + ×P⁻¹."""
     sp = acc[..., -k:, :].contiguous()
-    rest = acc[..., :-k, :]
     u = ntt_inv(sp, md.src_tables, strip_mont=True, extra=md.fbc.inv_punit)
     r_m = _fbc_fwd_mont(u, md.fbc, md.dst_tables, centered)
-    return shoup_mul(mod_sub(rest, r_m, md.dst_tables.q),
-                     md.p_inv, md.p_inv_shoup, md.dst_tables.q)
+    return ks_tail.sub_mul(acc, r_m, md.p_inv, md.p_inv_shoup,
+                           md.dst_tables.q)
 
 
 def _fbc_fwd_mont(u, fbc, dst_tables, centered: CenteredFbcPlan | None = None):
@@ -408,12 +375,9 @@ def _div_round_last(data: torch.Tensor, plan: RescalePlan) -> torch.Tensor:
     """Divide a Montgomery-NTT poly array [..., m, N] by its last prime,
     rounding: result over the remaining m-1 primes."""
     last = data[..., -1:, :].contiguous()
-    rest = data[..., :-1, :]
-    q_src = plan.src_tables.q
     last_c = ntt_inv(last, plan.src_tables, strip_mont=True)
-    l2 = mod_add(last_c, plan.half, q_src)
-    v = barrett_reduce_u32(l2, plan.dst_tables.q, plan.mu)
-    v = mod_sub(v, plan.half_mod, plan.dst_tables.q)
+    v = ks_tail.lift_last(last_c, plan.half, plan.src_tables.q,
+                          plan.dst_tables.q, plan.mu, plan.half_mod)
     vm = ntt_fwd_mont(v, plan.dst_tables)
-    return shoup_mul(mod_sub(rest, vm, plan.dst_tables.q),
-                     plan.src_inv, plan.src_inv_shoup, plan.dst_tables.q)
+    return ks_tail.sub_mul(data, vm, plan.src_inv, plan.src_inv_shoup,
+                           plan.dst_tables.q)

@@ -116,7 +116,7 @@ def host_tables(n: int, primes: tuple[int, ...]) -> dict[str, np.ndarray]:
     return out
 
 
-def build_tables(n: int, primes, device) -> NttTables:
+def build_tables(n: int, primes, device="cuda") -> NttTables:
     primes = tuple(int(p) for p in primes)
     h = host_tables(n, primes)
     return NttTables(n=n, primes=primes,

@@ -60,7 +60,7 @@ def _two_float(x: np.ndarray):
     return hi, lo
 
 
-def make_fbc(src_primes, dst_primes, device) -> FbcPlan:
+def make_fbc(src_primes, dst_primes, device="cuda") -> FbcPlan:
     P = 1
     for p in src_primes:
         P *= int(p)

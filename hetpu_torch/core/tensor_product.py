@@ -1,0 +1,109 @@
+"""The ct·ct tensor product: out_k = Σ_{i+j=k} x_i·y_j·R⁻¹ of Montgomery-NTT
+polys, the multiply of every CKKS and BFV product.
+
+Counterpart of the Karatsuba body of hetpu's ``Evaluator.multiply``
+(``hetpu/core/evaluator.py:117``) and ``square`` (``:150``), which XLA fuses
+into one loop under the evaluator's ``jax.jit``.  Eager PyTorch would make
+every Montgomery product and modular add its own int64 pass over device
+memory, so a CUDA tensor launches the ``tensor_product`` kernel
+(``csrc/tensor_product.cu``) for the 2×2 product and the square, and a CPU
+tensor takes :func:`tensor_product_plain`.  The general k×m product
+(deferred relinearisation) stays plain on either device.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import cuda_lib
+from .modular import mod_add, mod_sub, mont_mul
+
+
+def tensor_product_plain(x, y, q, r_inv):
+    """Part-wise product of x [..., ka, L, N] and y [..., kb, L, N]
+    (``y`` None: the square of a 2-part x, t1 = 2·c0·c1·R⁻¹):
+    [..., ka+kb−1, L, N]; the 2×2 case uses Karatsuba (3 modular
+    multiplies), as the reference."""
+    if y is None:
+        c0, c1 = x[..., 0, :, :], x[..., 1, :, :]
+        t0 = mont_mul(c0, c0, q, r_inv)
+        t2 = mont_mul(c1, c1, q, r_inv)
+        t01 = mont_mul(c0, c1, q, r_inv)
+        return torch.stack([t0, mod_add(t01, t01, q), t2], dim=-3)
+    ka, kb = x.shape[-3], y.shape[-3]
+    if ka == 2 and kb == 2:
+        c0, c1 = x[..., 0, :, :], x[..., 1, :, :]
+        d0, d1 = y[..., 0, :, :], y[..., 1, :, :]
+        t0 = mont_mul(c0, d0, q, r_inv)
+        t2 = mont_mul(c1, d1, q, r_inv)
+        t1 = mod_sub(
+            mod_sub(mont_mul(mod_add(c0, c1, q), mod_add(d0, d1, q), q,
+                             r_inv), t0, q),
+            t2, q)
+        return torch.stack([t0, t1, t2], dim=-3)
+    parts = []
+    for k in range(ka + kb - 1):
+        acc = None
+        for i in range(max(0, k - kb + 1), min(ka, k + 1)):
+            t = mont_mul(x[..., i, :, :], y[..., k - i, :, :], q, r_inv)
+            acc = t if acc is None else mod_add(acc, t, q)
+        parts.append(acc)
+    return torch.stack(parts, dim=-3)
+
+
+def tensor_product(x, y, q, r_inv, qinv_neg):
+    """:func:`tensor_product_plain`'s function (``y`` None: the square);
+    the ``tensor_product`` kernel on a CUDA tensor for the 2×2 product and
+    the square.  ``q``, ``r_inv``, ``qinv_neg``: the limbs' [L, 1]
+    Montgomery constants (``Context.mont``); the kernel reads q and −q⁻¹,
+    the plain form q and R⁻¹."""
+    ys = () if y is None else (y,)
+    two = x.shape[-3] == 2 and all(t.shape[-3] == 2 for t in ys)
+    if not cuda_lib.on_card(x, *ys, q, qinv_neg) or not two:
+        return tensor_product_plain(x, y, q, r_inv)
+    square = y is None
+    if not square and y.shape != x.shape:
+        x, y = torch.broadcast_tensors(x, y)
+    x = x.contiguous()
+    y = x if square else y.contiguous()
+    q, qinv_neg = q.contiguous(), qinv_neg.contiguous()
+    cuda_lib.check_i32("tensor_product", x, y, q, qinv_neg)
+    L, N = x.shape[-2:]
+    if q.numel() != L or qinv_neg.numel() != L:
+        raise ValueError(f"tensor_product: constants {tuple(q.shape)} do "
+                         f"not match {L} limbs")
+    if N % 4:
+        raise ValueError(f"tensor_product: N = {N} is not a multiple of 4")
+    out = torch.empty((*x.shape[:-3], 3, L, N), dtype=torch.int32,
+                      device=x.device)
+    rows = x.numel() // (2 * L * N)
+    if rows == 0:
+        return out
+    cuda_lib.check_aligned("tensor_product", x, y, out)
+    p = cuda_lib.ptr
+    cuda_lib.launch("tensor_product", "hetpu_tensor_product", x.device,
+                    p(x), p(y), p(q), p(qinv_neg), p(out), rows, L, N,
+                    int(square))
+    return out
+
+
+# ----------------------------------------------------------------------
+# the kernel's arithmetic, step by step in int64 (the CPU tests hold it
+# against the reference's 16-bit-emulated mont_mul)
+# ----------------------------------------------------------------------
+
+_MASK32 = 0xFFFFFFFF
+
+
+def redc_u32(a, b, q, qinv_neg):
+    """a·b·R⁻¹ mod q as ``csrc/tensor_product.cu`` ``mont_mul`` computes
+    it: t = a·b (64 bits), m = lo(t)·(−q⁻¹) mod 2^32,
+    u = hi(t) + hi(m·q) + (lo(t) ≠ 0) < 2q, one conditional subtract.
+    int64 tensors of values < 2^32 in, int64 out."""
+    t = a * b                                   # < 2^62: fits int64
+    lo, hi = t & _MASK32, t >> 32
+    m = ((lo & 0xFFFF) * qinv_neg                # lo(lo·(−q⁻¹)), each
+         + ((((lo >> 16) * qinv_neg) & 0xFFFF) << 16)) & _MASK32  # < 2^48
+    mq_hi = (m * q) >> 32
+    u = hi + mq_hi + (lo != 0).to(torch.int64)
+    return torch.where(u >= q, u - q, u)

@@ -102,7 +102,7 @@ def _host(n: int, primes: tuple[int, ...]) -> dict[str, np.ndarray]:
     return out
 
 
-def build_tables(n: int, primes, device) -> FourStepTables:
+def build_tables(n: int, primes, device="cuda") -> FourStepTables:
     """Four-step tables of the flat N-point transform over ``primes``."""
     primes = tuple(int(p) for p in primes)
     h = _host(n, primes)

@@ -4,7 +4,9 @@ Counterpart of ``hetpu/utils/profiling.py``.
 
 * ``trace(log_dir)`` — ``torch.profiler`` over the block (CPU activity,
   and CUDA activity where there is a card); the Chrome trace is written to
-  ``log_dir/trace.json`` (open it in Perfetto or ``chrome://tracing``).
+  ``log_dir/trace.json`` (open it in Perfetto or ``chrome://tracing``);
+  it yields ``log_dir``, as the reference's does.  ``profiled(log_dir)``
+  is the same, yielding the profiler itself (``key_averages()``).
 * ``op_latency(fn, data, iters)`` — seconds per call of ``fn``, with each
   call's input chained to the previous output through a one-bit tag, so
   neither overlap nor reuse of a result can shorten the measure.  Timed
@@ -21,13 +23,17 @@ import time
 import torch
 
 
+def _default_dir() -> str:
+    return os.path.join(tempfile.gettempdir(), "hetpu_torch_trace")
+
+
 @contextlib.contextmanager
-def trace(log_dir: str | None = None):
+def profiled(log_dir: str | None = None):
     """Profile the block; yields the profiler (``key_averages()`` etc.)
-    and writes ``<log_dir>/trace.json`` on exit."""
+    and writes ``<log_dir>/trace.json`` on exit (the port's own form:
+    :func:`trace` yields the directory, as the reference's does)."""
     from torch.profiler import ProfilerActivity, profile
-    log_dir = log_dir or os.path.join(tempfile.gettempdir(),
-                                      "hetpu_torch_trace")
+    log_dir = log_dir or _default_dir()
     os.makedirs(log_dir, exist_ok=True)
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
@@ -35,6 +41,15 @@ def trace(log_dir: str | None = None):
     with profile(activities=acts) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+@contextlib.contextmanager
+def trace(log_dir: str | None = None):
+    """Profile the block into ``<log_dir>/trace.json``; yields
+    ``log_dir``."""
+    log_dir = log_dir or _default_dir()
+    with profiled(log_dir):
+        yield log_dir
 
 
 def _tag(x: torch.Tensor) -> torch.Tensor:

@@ -8,6 +8,7 @@ Imports neither JAX nor hetpu, so it also runs on a GPU host without JAX:
 (``--noconftest``: tests/conftest.py sets up JAX for the reference tests.)
 """
 
+import dataclasses
 import json
 import pathlib
 
@@ -18,7 +19,7 @@ import torch.multiprocessing as mp
 
 from hetpu_torch.bfv import BfvSession
 from hetpu_torch.core import (centered_fbc, cuda_lib, fused_ntt, ip_kernel,
-                              serial)
+                              ks_tail, serial)
 from hetpu_torch.core.bfv import BfvScheme
 from hetpu_torch.core.context import Context
 from hetpu_torch.core.evaluator import Evaluator
@@ -36,6 +37,8 @@ from hetpu_torch.offload.server import handle
 from hetpu_torch.probes import copy as copy_probe
 from hetpu_torch.probes import dot, kernel_parts, overhead2
 from hetpu_torch.session import Session
+from hetpu_torch.core.tensor_product import (tensor_product,
+                                             tensor_product_plain)
 from torch_ties import (TIES_DNUM, TIES_DNUM_CENTERED,
                         TIES_N14_TAIL_CENTERED)
 import torch_parallel_ranks as ranks
@@ -300,7 +303,8 @@ def test_slice_golden_and_counters(dev):
     np.testing.assert_array_equal(to_u32(out.data), z["fused_out"])
     counts = cuda_lib.launches
     assert all(counts[k] > 0 for k in ("ntt", "ntt_fwd_lifted", "ntt_fwd_fbc",
-                                       "inner_product")), counts
+                                       "inner_product", "tensor_product",
+                                       "ks_tail")), counts
     # default FBC path
     assert counts["centered_fbc"] == counts["ntt_fwd_centered"] == 0, counts
 
@@ -316,6 +320,158 @@ def test_bench_n14_b1_equals_cpu(dev):
     ref = Evaluator(Context(preset("bench_n14"), "cpu")).multiply_relin_rescale(
         a.to("cpu"), b.to("cpu"), sess.rk.to("cpu"))
     assert torch.equal(out.data.cpu(), ref.data)
+
+
+# ----------------------------------------------------------------------
+# K7 tensor_product and K8 ks_tail against their twins (chip_smoke.py's
+# shapes, edge residues 0 and q−1 on the basis' largest prime), and the
+# ops that run them, card = CPU
+# ----------------------------------------------------------------------
+
+def _edged(rng, shape, primes, dev):
+    """Residues with 0 and q−1 at the first and last x of every plane,
+    and the whole last row at q−1 of each limb."""
+    q = np.array(primes, dtype=np.uint64).reshape(-1, 1)
+    x = rng.integers(0, 1 << 62, shape, dtype=np.uint64) % q
+    x[..., 0] = 0
+    x[..., -1] = (q - 1)[:, 0]
+    x.reshape(-1, *x.shape[-2:])[-1] = np.broadcast_to(q - 1, x.shape[-2:])
+    return from_u32(x, dev)
+
+
+def _k7_case(rng, primes, mc, lead, square, dev):
+    L, n = len(primes), 1 << 14
+    x = _edged(rng, (*lead, 2, L, n), primes, dev)
+    y = None if square else _edged(rng, (*lead, 2, L, n), primes, dev)
+    got = tensor_product(x, y, mc["q"], mc["r_inv"], mc["qinv_neg"])
+    want = tensor_product_plain(x, y, mc["q"], mc["r_inv"])
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("square", [False, True])
+@pytest.mark.parametrize("lead", [(8,), (1,), (3, 2), (32,)])
+def test_tensor_product_kernel(dev, n14, lead, square):
+    """bench_n14 level 8 [lead, 2, 9, N] (B=8 the main path, 32 the
+    profiling programs')."""
+    cuda_lib.reset_launches()
+    _k7_case(np.random.default_rng(71), n14.params.moduli, n14.mont(8),
+             lead, square, dev)
+    assert cuda_lib.launches["tensor_product"] == 1
+
+
+def test_tensor_product_kernel_bfv_bases(dev, bfv14):
+    """bfv_batch's data basis (7 primes) and auxiliary basis B at B=8."""
+    ctx, scheme = bfv14
+    plans = scheme._lvl(6)
+    rng = np.random.default_rng(72)
+    _k7_case(rng, ctx.params.moduli[:7], ctx.mont(6), (8,), False, dev)
+    mc = {"q": plans["q_B"], "r_inv": plans["r_inv_B"],
+          "qinv_neg": plans["qinv_neg_B"]}
+    _k7_case(rng, plans["B_primes"], mc, (8,), False, dev)
+
+
+def _tail_case(ctx, level, rows, dev, seed):
+    """acc [rows,2,L+k,N], ct [rows,3,L,N], r [rows,2,L−g,N] at ``level``."""
+    g = ctx.params.rescale_group
+    L, k = level + 1, ctx.num_special
+    rng = np.random.default_rng(seed)
+    basis = ctx.params.moduli[:L] + ctx.params.special_moduli
+    acc = _edged(rng, (rows, 2, L + k, 1 << 14), basis, dev)
+    ct = _edged(rng, (rows, 3, L, 1 << 14), ctx.params.moduli[:L], dev)
+    r = _edged(rng, (rows, 2, L - g, 1 << 14), ctx.params.moduli[:L - g], dev)
+    return acc, ct, r
+
+
+@pytest.mark.parametrize("which", ["n14", "hi14"])
+def test_ks_tail_fused_tail(dev, n14, hi14, which):
+    """tail_src and tail_out at the fused relin + rescale of bench_n14
+    level 8 (g=1) and ckks_hi14 level 11 (g=2), B=8."""
+    ctx, level = (n14, 8) if which == "n14" else (hi14, 11)
+    g = ctx.params.rescale_group
+    plan = ctx.moddown_rescale_plan(level)
+    acc, ct, r = _tail_case(ctx, level, 8, dev, 81)
+    q = ctx.tables(level).q
+    args = (acc, ct, g, plan.p_mod, plan.p_mod_shoup, q)
+    assert torch.equal(ks_tail.tail_src(*args), ks_tail.tail_src_plain(*args))
+    args = (acc, ct, r, plan.p_mod, plan.p_mod_shoup, plan.pq_inv,
+            plan.pq_inv_shoup, q)
+    assert torch.equal(ks_tail.tail_out(*args), ks_tail.tail_out_plain(*args))
+
+
+@pytest.mark.parametrize("case", ["moddown", "rescale", "pair"])
+def test_ks_tail_sub_mul_and_lift_last(dev, n14, hi14, case):
+    """sub_mul at relinearize's mod-down [8,2,14,N] → [8,2,9,N], rescale's
+    divide [8,2,9,N] → [8,2,8,N] (with lift_last [8,2,1,N] → [8,2,8,N])
+    and ckks_hi14's pair rescale [8,2,12,N] → [8,2,10,N]."""
+    rng = np.random.default_rng(82)
+    if case == "moddown":
+        md = n14.keyswitch_plan(8).moddown
+        basis = n14.params.moduli[:9] + n14.params.special_moduli
+        dst, w, ws = md.dst_tables, md.p_inv, md.p_inv_shoup
+    elif case == "rescale":
+        plan = n14.rescale_plan(8)
+        basis = n14.params.moduli[:9]
+        dst, w, ws = plan.dst_tables, plan.src_inv, plan.src_inv_shoup
+    else:
+        md = hi14.group_rescale_plan(11)
+        basis = hi14.params.moduli[:12]
+        dst, w, ws = md.dst_tables, md.p_inv, md.p_inv_shoup
+    x = _edged(rng, (8, 2, len(basis), 1 << 14), basis, dev)
+    r = _edged(rng, (8, 2, len(dst.primes), 1 << 14), dst.primes, dev)
+    args = (x, r, w, ws, dst.q)
+    assert torch.equal(ks_tail.sub_mul(*args), ks_tail.sub_mul_plain(*args))
+    if case == "rescale":
+        last = _edged(rng, (8, 2, 1, 1 << 14), basis[-1:], dev)
+        args = (last, plan.half, plan.src_tables.q, dst.q, plan.mu,
+                plan.half_mod)
+        assert torch.equal(ks_tail.lift_last(*args),
+                           ks_tail.lift_last_plain(*args))
+
+
+def test_k7_k8_refuse_bad_input(dev, n14):
+    mc = n14.mont(8)
+    x = torch.zeros((1, 2, 9, 6), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tensor_product(x, x, mc["q"], mc["r_inv"], mc["qinv_neg"])
+    x = torch.zeros((1, 2, 8, 1 << 14), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="limbs"):
+        tensor_product(x, x, mc["q"], mc["r_inv"], mc["qinv_neg"])
+    plan = n14.rescale_plan(8)
+    with pytest.raises(ValueError, match="do not match"):
+        ks_tail.sub_mul(x, torch.zeros((2, 2, 8, 1 << 14), dtype=torch.int32,
+                                       device=dev),
+                        plan.src_inv, plan.src_inv_shoup, plan.dst_tables.q)
+
+
+@pytest.mark.parametrize("group", [1, 2])
+def test_k7_k8_ops_card_equal_cpu(dev, group):
+    """Session → multiply_relin_rescale, square_relin_rescale, multiply +
+    relinearize + rescale on the card = the CPU port (B=3), through K7
+    and K8: test_dnum, and test_dnum's primes at rescale_group=2 (the pair
+    rescale; two anchors)."""
+    params = dataclasses.replace(preset("test_dnum"), rescale_group=group,
+                                 num_anchor=group)
+    sess = Session.create(params, seed=b"\x44" * 32, galois_steps=[],
+                          device=dev)
+    rng = np.random.default_rng(73)
+    x, y = rng.uniform(-1, 1, (2, 3, sess.slots))
+    a, b = (cts[0].with_(data=torch.stack([c.data for c in cts]))
+            for cts in ([sess.encrypt(v) for v in x],
+                        [sess.encrypt(v) for v in y]))
+    cpu = Evaluator(Context(sess.ctx.params, "cpu"))
+    ca, cb, crk = a.to("cpu"), b.to("cpu"), sess.rk.to("cpu")
+    cuda_lib.reset_launches()
+    ev = sess.ev
+    for got, want in (
+            (ev.multiply_relin_rescale(a, b, sess.rk),
+             cpu.multiply_relin_rescale(ca, cb, crk)),
+            (ev.square_relin_rescale(a, sess.rk),
+             cpu.square_relin_rescale(ca, crk)),
+            (ev.rescale(ev.relinearize(ev.multiply(a, b), sess.rk)),
+             cpu.rescale(cpu.relinearize(cpu.multiply(ca, cb), crk)))):
+        assert torch.equal(got.data.cpu(), want.data)
+    assert cuda_lib.launches["tensor_product"] == 3, cuda_lib.launches
+    assert cuda_lib.launches["ks_tail"] > 0, cuda_lib.launches
 
 
 # ----------------------------------------------------------------------

@@ -386,6 +386,87 @@ def test_hetpu_public_names_exist(name):
     assert not missing, f"{name}: the port lacks {missing}"
 
 
+# parameters that the port requires and hetpu does not take: the int64
+# Montgomery multiply's R⁻¹ in place of the 32-bit form's -q⁻¹ (ROADMAP "Do
+# not port"); the parallel layer's explicit mesh (PR 8: hetpu calls
+# mod_all_reduce inside shard_map, whose mesh is implicit)
+REQUIRED_NOT_IN_HETPU = {("hetpu.core.modular", "mont_mul"): {"r_inv"},
+                         ("hetpu.parallel", "mod_all_reduce"): {"mesh"}}
+
+
+def _required(fn) -> set:
+    return {k for k, p in inspect.signature(fn).parameters.items()
+            if p.default is p.empty
+            and p.kind not in (p.VAR_POSITIONAL, p.VAR_KEYWORD)}
+
+
+@pytest.mark.parametrize("name", HETPU_MODULES)
+def test_hetpu_calls_bind_in_the_port(name):
+    """hetpu's call forms bind in the port: for every public function,
+    class and method that both have, the port's required parameters are
+    among hetpu's (a parameter the port adds, such as ``device``, has a
+    default), save the stated exceptions."""
+    import importlib
+    ref = importlib.import_module(name)
+    ports = [importlib.import_module(m) for m in MAPPED.get(
+        name, (name.replace("hetpu", "hetpu_torch", 1),))]
+    extra = []
+    for k, v in _public(ref).items():
+        if (name, k) in DO_NOT_PORT:
+            continue
+        pmod, pk = RENAMED.get((name, k), (None, k))
+        where = [importlib.import_module(pmod)] if pmod else ports
+        got = next((getattr(m, pk) for m in where if hasattr(m, pk)), None)
+        if got is None:
+            continue                      # test_hetpu_public_names_exist
+        pairs = {k: (v, got)}
+        if inspect.isclass(v):
+            pairs = {f"{k}.{mk}": (mv, inspect.getattr_static(got, mk, None))
+                     for mk, mv in _methods(v).items()}
+        for qual, (a, b) in pairs.items():
+            if b is None or isinstance(a, property):
+                continue
+            b = b.__func__ if isinstance(b, (staticmethod, classmethod)) \
+                else b
+            if dataclasses.is_dataclass(got) and qual.endswith("__init__"):
+                continue
+            need = _required(b) - _params(a) \
+                - REQUIRED_NOT_IN_HETPU.get((name, qual), set())
+            if need:
+                extra.append(f"{qual}({', '.join(sorted(need))})")
+    assert not extra, f"{name}: the port requires what hetpu lacks: {extra}"
+
+
+def test_call_forms_of_queue_3_bind():
+    """The call forms that raised TypeError before: build_tables,
+    make_fbc and CenteredFbcPlan as hetpu writes them, defaulting to the
+    card (and raising without one, never falling back to the CPU)."""
+    from hetpu.core import mxu_fbc as ref_mxu_fbc
+    from hetpu.core import ntt as ref_ntt
+    from hetpu.core import rns as ref_rns
+    from hetpu_torch.core import centered_fbc, ntt, rns
+    from hetpu_torch.parallel import cp
+    pairs = [(ref_ntt.build_tables, ntt.build_tables),
+             (ref_rns.make_fbc, rns.make_fbc),
+             (ref_mxu_fbc.MxuFbcPlan.__init__,
+              centered_fbc.CenteredFbcPlan.__init__)]
+    for ref_fn, fn in pairs:
+        inspect.signature(fn).bind(*inspect.signature(ref_fn).parameters)
+    for fn in (ntt.build_tables, cp.build_tables, rns.make_fbc,
+               centered_fbc.CenteredFbcPlan.__init__):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        return
+    primes = preset("test_tiny").moduli[:2]
+    for call in (lambda: ntt.build_tables(1024, primes),
+                 lambda: cp.build_tables(1024, primes),
+                 lambda: rns.make_fbc(primes[:1], primes[1:]),
+                 lambda: centered_fbc.CenteredFbcPlan(
+                     primes[:1], primes[1:], np.ones((1, 1)))):
+        with pytest.raises((RuntimeError, AssertionError)):
+            call()
+
+
 # dataclass fields of hetpu's that the port lays out otherwise: the tp
 # plan's GSPMD-sharded and replicated halves are the port's TpShard
 FIELDS_NOT_PORTED = {("hetpu.parallel.tp", "TpKeySwitchPlan"):
@@ -437,6 +518,11 @@ def test_exceptions_name_hetpus_own():
         for part in qual.split("."):
             obj = getattr(obj, part)
         assert ps <= _params(obj), (mod, qual)
+    for (mod, qual), ps in REQUIRED_NOT_IN_HETPU.items():
+        obj = importlib.import_module(mod)
+        for part in qual.split("."):
+            obj = getattr(obj, part)
+        assert not ps & _params(obj), (mod, qual)
     assert set(MAPPED) <= set(HETPU_MODULES)
     for (mod, cls), names in FIELDS_NOT_PORTED.items():
         fields = {f.name for f in dataclasses.fields(

@@ -86,7 +86,14 @@ def test_op_latency_chains_its_calls():
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
-    with profiling.trace(str(tmp_path)) as prof:
+    """``trace`` yields its directory, as hetpu's does; ``profiled`` (the
+    port's own) yields the profiler.  Both write the Chrome trace."""
+    with profiling.trace(str(tmp_path)) as log_dir:
+        torch.ones(64).sum()
+    assert log_dir == str(tmp_path)
+    assert json.loads((tmp_path / "trace.json").read_text())
+    (tmp_path / "trace.json").unlink()
+    with profiling.profiled(str(tmp_path)) as prof:
         torch.ones(64).sum()
     assert prof.key_averages() is not None
     assert json.loads((tmp_path / "trace.json").read_text())
