@@ -6,9 +6,12 @@ output's ``[..., :1, :1, :8]`` folded into the next input
 (:func:`..bench.fold_rows8`): one warm-up step, then 5 chained eager steps
 under ``torch.profiler`` (:func:`..utils.profiling.profiled`), the Chrome
 trace written to ``build/hetpu_torch/trace_op/trace.json``.  Prints the
-device µs a step of the 15 costliest kernels by name, the package
-kernels' share of device time, the device's busy share of the traced
-wall time and the device kernels a step, then hetpu's ``trace done``.  The script's choice of a TPU NTT
+device µs a step of the 15 costliest kernels by name, then by the
+evaluator's stage (the innermost ``hetpu/`` span open at each launch,
+:func:`..utils.profiling.stage_device_us`, from the same run's Chrome
+trace), the package kernels' share of device time, the device's busy
+share of the traced wall time and the device kernels a step, then
+hetpu's ``trace done``.  The script's choice of a TPU NTT
 backend (``mxu_ntt._FORCE``) has no counterpart here.
 """
 
@@ -22,7 +25,7 @@ import torch
 
 from . import OUT_DIR, bench_sweep, meta, write_record
 from ..utils.keycache import cached_session
-from ..utils.profiling import profiled
+from ..utils.profiling import PREFIX, profiled, stage_device_us
 
 PRESET, SMALL_PRESET = "bench_n14", "test_dnum"
 SEED = b"\x21" * 32
@@ -47,11 +50,12 @@ def chain(sess, batch: int):
 
 def device_us(prof, steps: int) -> tuple[dict, float]:
     """Device µs a step by kernel name, costliest first, and device
-    kernels a step (empty and 0 without a card)."""
+    kernels a step (empty and 0 without a card); the device's copies of
+    the ``hetpu/`` spans are not kernels."""
     from torch.autograd import DeviceType
     out, count = {}, 0
     for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and not e.key.startswith(PREFIX):
             us = getattr(e, "self_device_time_total", 0.0) / steps
             out[e.key] = out.get(e.key, 0.0) + us
             count += e.count
@@ -89,14 +93,20 @@ def run(small: bool, device: str, out=None, steps: int | None = None) -> dict:
     for k, us in list(kernels.items())[:TOP]:
         print(f"{us:10.1f} us/step  {package_name(k) or 'plain'}  {k[:90]}",
               flush=True)
+    events = json.loads((trace_dir / "trace.json").read_text())["traceEvents"]
+    stages = stage_device_us(events, steps)
+    for k, us in stages.items():
+        print(f"{us:10.1f} us/step  stage  {k}", flush=True)
     summary = {"steps": steps, "batch": batch, "wall_us_per_step": wall_us,
                "device_us_per_step": total if kernels else None,
                "package_share": ours / total if total else None,
                "busy_share": total / wall_us if kernels else None,
                "kernels_per_step": per_step if kernels else None,
                "top": dict(list(kernels.items())[:TOP]),
+               "stages": stages,
                "trace": str(trace_dir / "trace.json")}
-    print(json.dumps({k: v for k, v in summary.items() if k != "top"}),
+    print(json.dumps({k: v for k, v in summary.items()
+                      if k not in ("top", "stages")}),
           flush=True)
     print("trace done", flush=True)
     record = {**summary, **meta(device)}

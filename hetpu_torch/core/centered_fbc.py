@@ -145,7 +145,8 @@ class CenteredFbcPlan:
             "centered_fbc", "hetpu_centered_fbc", y.device, y.data_ptr(),
             out.data_ptr(), rows, self.S, self.F, N,
             self.kernel_consts.data_ptr(), int(self.has_alpha),
-            int(self.has_extra))
+            int(self.has_extra),
+            nbytes=cuda_lib.plane_bytes(N, rows * self.S, rows * self.F))
         return out
 
 

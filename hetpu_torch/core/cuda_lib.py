@@ -15,10 +15,23 @@ Each kernel wrapper (``ntt.py``, ``fused_ntt.py``, ``ip_kernel.py``,
 allocates outputs with ``torch.empty`` (``peer.py`` stores into exchange
 buffers the library allocates), launches on
 ``torch.cuda.current_stream()``, raises on a non-zero
-``cudaGetLastError()`` and adds one to its entry in :data:`launches`.  A call made inside :func:`recording` (a CUDA graph
-capture) does not launch: it records the kernel into the graph and counts
-there instead; each replay of that graph launches the recorded kernels
-and counts them in :data:`launches` (:func:`count_replay`).
+``cudaGetLastError()`` and adds one to its entry in :data:`launches`.  A
+call made inside :func:`recording` (a CUDA graph capture) does not launch:
+it records the kernel into the graph and counts there instead; each
+replay of that graph launches the recorded kernels and counts them in
+:data:`launches` (:func:`count_replay`).
+
+:data:`launch_bytes`, with the same keys, adds each launch's device-memory
+bytes, which the wrapper reckons from the shapes it checks
+(:func:`plane_bytes`): every operand limb (plane of N words) that the
+kernel's index maps address is read once and every output limb written
+once, as int32 words, wherever the kernel reads it more often; key values
+and their Shoup companions count where the kernel reads both; twiddle
+tables and per-prime constants do not count.  Bytes are added only while
+a torch profiler records (``utils.profiling.profiler_on``), so the
+traced slice's launches carry them and an untraced launch pays one check;
+a capture records its launches' bytes, and a replay adds them under the
+same check.  :func:`reset_launches` clears both.
 """
 
 from __future__ import annotations
@@ -34,6 +47,8 @@ from pathlib import Path
 
 import torch
 
+from ..utils.profiling import profiler_on
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "hetpu_torch"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -46,6 +61,10 @@ launches = {"ntt": 0, "ntt_fwd_lifted": 0, "ntt_fwd_fbc": 0,
             "tensor_product": 0, "ks_tail": 0,
             "copy_planes": 0, "muladd_u32": 0, "dot_i8": 0,
             "plane_parts": 0, "peer_permute": 0}
+# kernel name → device-memory bytes of its launches made while a profiler
+# recorded (the rule in the module docstring)
+launch_bytes = dict.fromkeys(launches, 0)
+WORD = 4                   # bytes an int32 residue
 
 _lock = threading.Lock()
 _lib = None
@@ -116,26 +135,47 @@ _SIGNATURES = {
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+        launch_bytes[k] = 0
+
+
+def plane_bytes(n: int, *planes: int) -> int:
+    """Bytes of ``sum(planes)`` int32 planes of ``n`` words each: a
+    launch's reckoning, its operand planes read and output planes
+    written."""
+    return WORD * n * sum(planes)
+
+
+class Recorded(dict):
+    """The launches a capture recorded (name → calls), with their bytes
+    (:attr:`nbytes`, name → bytes)."""
+
+    def __init__(self):
+        super().__init__(dict.fromkeys(launches, 0))
+        self.nbytes = dict.fromkeys(launches, 0)
 
 
 @contextlib.contextmanager
 def recording():
     """Wrap a CUDA graph capture: the wrapper calls inside record their
     kernels into the graph instead of launching them, so they count in
-    the dict this yields (name → calls), not in :data:`launches`."""
+    the :class:`Recorded` this yields, not in :data:`launches`."""
     global _recorded
-    _recorded = dict.fromkeys(launches, 0)
+    _recorded = Recorded()
     try:
         yield _recorded
     finally:
         _recorded = None
 
 
-def count_replay(kernels: dict) -> None:
+def count_replay(kernels: dict, nbytes: dict | None = None) -> None:
     """Count one replay of a CUDA graph whose capture recorded ``kernels``
-    (name → launches): the replay launches each of them."""
+    (name → launches) and ``nbytes`` (name → bytes): the replay launches
+    each of them."""
     for k, n in kernels.items():
         launches[k] += n
+    if nbytes and profiler_on():
+        for k, b in nbytes.items():
+            launch_bytes[k] += b
 
 
 def _nvcc() -> str:
@@ -255,10 +295,11 @@ def ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
-def launch(kernel: str, fn_name: str, device: torch.device, *args) -> None:
+def launch(kernel: str, fn_name: str, device: torch.device, *args,
+           nbytes: int) -> None:
     """Call C entry ``fn_name`` on ``device``'s current stream, raise on a
-    launch error, and count the launch under ``kernel`` (inside
-    :func:`recording`, as recorded)."""
+    launch error, and count the launch and its ``nbytes`` under ``kernel``
+    (inside :func:`recording`, as recorded)."""
     handle = lib()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -266,4 +307,10 @@ def launch(kernel: str, fn_name: str, device: torch.device, *args) -> None:
     if err != 0:
         msg = handle.hetpu_error_string(err).decode()
         raise RuntimeError(f"{kernel} kernel launch failed: {msg} ({err})")
-    (launches if _recorded is None else _recorded)[kernel] += 1
+    if _recorded is not None:
+        _recorded[kernel] += 1
+        _recorded.nbytes[kernel] += nbytes
+        return
+    launches[kernel] += 1
+    if profiler_on():
+        launch_bytes[kernel] += nbytes

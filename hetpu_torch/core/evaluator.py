@@ -18,6 +18,15 @@ mod-down and rescale tails (``ks_tail``); the other elementwise steps
 (Galois gathers, the plaintext and digit Shoup multiplies,
 concatenations, mod add/sub) stay plain PyTorch.
 
+While a torch profiler records, each stage opens its span
+(:func:`..utils.profiling.span`): ``hetpu/mul.tensor`` (the tensor
+product), ``hetpu/ks.decompose`` (the digit decomposition),
+``hetpu/ks.inner`` (the key's selection and the inner product),
+``hetpu/ks.tail`` (the fused relin + rescale divide), ``hetpu/ks.mod_down``
+(the mod-down by P, and the paired rescale) and ``hetpu/rescale`` (the
+one-prime divide).  In ``multiply_relin_rescale`` every kernel falls under
+exactly one of the first four.
+
 ``centered_fbc=True`` is the port's spelling of the reference's
 ``HETPU_MXU_FBC=1``: the key-switch digit lift and every α-corrected base
 conversion take centered source values (:mod:`.centered_fbc`), fused with
@@ -38,6 +47,7 @@ from .keys import GaloisKeys, KSwitchKey, RelinKeys
 from .modular import mod_add, mod_neg, mod_sub, shoup_mul
 from .ntt import ntt_fwd_mont, ntt_inv
 from .tensor_product import tensor_product
+from ..utils.profiling import span
 
 
 class Evaluator:
@@ -112,17 +122,19 @@ class Evaluator:
         if a.level != b.level:
             raise ValueError(f"multiply: level {a.level} vs {b.level}")
         mc = self.ctx.mont(a.level)
-        return Ciphertext(data=tensor_product(a.data, b.data, mc["q"],
-                                              mc["r_inv"], mc["qinv_neg"]),
-                          level=a.level, scale=a.scale * b.scale)
+        with span("mul.tensor"):
+            d = tensor_product(a.data, b.data, mc["q"], mc["r_inv"],
+                               mc["qinv_neg"])
+        return Ciphertext(data=d, level=a.level, scale=a.scale * b.scale)
 
     def square(self, a: Ciphertext) -> Ciphertext:
         if a.num_parts != 2:
             raise ValueError("square requires a 2-part input")
         mc = self.ctx.mont(a.level)
-        return Ciphertext(data=tensor_product(a.data, None, mc["q"],
-                                              mc["r_inv"], mc["qinv_neg"]),
-                          level=a.level, scale=a.scale * a.scale)
+        with span("mul.tensor"):
+            d = tensor_product(a.data, None, mc["q"], mc["r_inv"],
+                               mc["qinv_neg"])
+        return Ciphertext(data=d, level=a.level, scale=a.scale * a.scale)
 
     # ------------------------------------------------------------------
     # key switching: relinearize / rotate / conjugate
@@ -138,28 +150,29 @@ class Evaluator:
         with ``centered_fbc`` the centered lift (``ntt_fwd_centered``).  On a
         digit's own primes the lifted value is the input residue itself
         (one Shoup multiply by R⁻¹, no NTT)."""
-        plan: KeySwitchPlan = self.ctx.keyswitch_plan(level)
-        tabs = self.ctx.tables(level)
-        d = d.contiguous()
-        y = ntt_inv(d, tabs, strip_mont=True, extra=plan.dig_inv)
-        lift = (plan.lift_w, plan.lift_ws, plan.lift_dig)
-        if self.centered_fbc:
-            lifted_cat = fused_ntt.ntt_fwd_centered_lift(
-                y, *lift, plan.q[: level + 1], plan.foreign_cat_tables)
-        else:
-            lifted_cat = fused_ntt.ntt_fwd_lifted(y, *lift,
-                                                  plan.foreign_cat_tables)
-        exts = []
-        off = 0
-        for di, (lo, hi) in enumerate(plan.digit_bounds):
-            nf = len(plan.foreign_idx[di])
-            lifted = lifted_cat[..., off:off + nf, :]
-            off += nf
-            direct = shoup_mul(d[..., lo:hi, :], plan.rinv[lo:hi],
-                               plan.rinv_shoup[lo:hi], tabs.q[lo:hi])
-            exts.append(torch.cat(
-                [lifted[..., :lo, :], direct, lifted[..., lo:, :]], dim=-2))
-        return torch.stack(exts, dim=-3)
+        with span("ks.decompose"):
+            plan: KeySwitchPlan = self.ctx.keyswitch_plan(level)
+            tabs = self.ctx.tables(level)
+            d = d.contiguous()
+            y = ntt_inv(d, tabs, strip_mont=True, extra=plan.dig_inv)
+            lift = (plan.lift_w, plan.lift_ws, plan.lift_dig)
+            if self.centered_fbc:
+                lifted_cat = fused_ntt.ntt_fwd_centered_lift(
+                    y, *lift, plan.q[: level + 1], plan.foreign_cat_tables)
+            else:
+                lifted_cat = fused_ntt.ntt_fwd_lifted(y, *lift,
+                                                      plan.foreign_cat_tables)
+            exts = []
+            off = 0
+            for di, (lo, hi) in enumerate(plan.digit_bounds):
+                nf = len(plan.foreign_idx[di])
+                lifted = lifted_cat[..., off:off + nf, :]
+                off += nf
+                direct = shoup_mul(d[..., lo:hi, :], plan.rinv[lo:hi],
+                                   plan.rinv_shoup[lo:hi], tabs.q[lo:hi])
+                exts.append(torch.cat([lifted[..., :lo, :], direct,
+                                       lifted[..., lo:, :]], dim=-2))
+            return torch.stack(exts, dim=-3)
 
     def _inner_product_raw(self, ext: torch.Tensor, level: int,
                            ksk: KSwitchKey) -> torch.Tensor:
@@ -173,8 +186,9 @@ class Evaluator:
         else:
             sel = lambda a: torch.cat(
                 [a[:J, :, : level + 1], a[:J, :, nd:]], dim=2)
-        return ip_kernel.inner_product(ext, sel(ksk.data), sel(ksk.shoup),
-                                       plan.q)
+        with span("ks.inner"):
+            return ip_kernel.inner_product(ext, sel(ksk.data),
+                                           sel(ksk.shoup), plan.q)
 
     def _inner_product(self, ext: torch.Tensor, level: int, ksk: KSwitchKey):
         """Σ_j digit_j ⊙ ksk_j, then mod-down by P = ∏ specials.
@@ -322,15 +336,16 @@ class Evaluator:
         q = self.ctx.tables(level).q
         # w = acc + c01·P over the L data limbs: its last g are the
         # divide's sources, its first L−g the divide's operand
-        src = ks_tail.tail_src(acc, ct3.data, g, plan.p_mod,
-                               plan.p_mod_shoup, q)
-        u = ntt_inv(src, plan.src_tables, strip_mont=True,
-                    extra=plan.fbc.inv_punit)
-        r_m = _fbc_fwd_mont(u, plan.fbc, plan.dst_tables,
-                            self._centered(plan.fbc))
-        out = ks_tail.tail_out(acc, ct3.data, r_m, plan.p_mod,
-                               plan.p_mod_shoup, plan.pq_inv,
-                               plan.pq_inv_shoup, q)
+        with span("ks.tail"):
+            src = ks_tail.tail_src(acc, ct3.data, g, plan.p_mod,
+                                   plan.p_mod_shoup, q)
+            u = ntt_inv(src, plan.src_tables, strip_mont=True,
+                        extra=plan.fbc.inv_punit)
+            r_m = _fbc_fwd_mont(u, plan.fbc, plan.dst_tables,
+                                self._centered(plan.fbc))
+            out = ks_tail.tail_out(acc, ct3.data, r_m, plan.p_mod,
+                                   plan.p_mod_shoup, plan.pq_inv,
+                                   plan.pq_inv_shoup, q)
         prod = 1.0
         for qd in self.ctx.params.moduli[level - g + 1: level + 1]:
             prod *= qd
@@ -354,11 +369,13 @@ def _mod_down(acc: torch.Tensor, md, k: int,
     """Divide a key-basis accumulator [..., parts, n_data+k, N] (Montgomery
     NTT) by P = ∏ of the k special primes, landing on the data basis:
     centered FBC of the special limbs + subtract + ×P⁻¹."""
-    sp = acc[..., -k:, :].contiguous()
-    u = ntt_inv(sp, md.src_tables, strip_mont=True, extra=md.fbc.inv_punit)
-    r_m = _fbc_fwd_mont(u, md.fbc, md.dst_tables, centered)
-    return ks_tail.sub_mul(acc, r_m, md.p_inv, md.p_inv_shoup,
-                           md.dst_tables.q)
+    with span("ks.mod_down"):
+        sp = acc[..., -k:, :].contiguous()
+        u = ntt_inv(sp, md.src_tables, strip_mont=True,
+                    extra=md.fbc.inv_punit)
+        r_m = _fbc_fwd_mont(u, md.fbc, md.dst_tables, centered)
+        return ks_tail.sub_mul(acc, r_m, md.p_inv, md.p_inv_shoup,
+                               md.dst_tables.q)
 
 
 def _fbc_fwd_mont(u, fbc, dst_tables, centered: CenteredFbcPlan | None = None):
@@ -374,10 +391,11 @@ def _fbc_fwd_mont(u, fbc, dst_tables, centered: CenteredFbcPlan | None = None):
 def _div_round_last(data: torch.Tensor, plan: RescalePlan) -> torch.Tensor:
     """Divide a Montgomery-NTT poly array [..., m, N] by its last prime,
     rounding: result over the remaining m-1 primes."""
-    last = data[..., -1:, :].contiguous()
-    last_c = ntt_inv(last, plan.src_tables, strip_mont=True)
-    v = ks_tail.lift_last(last_c, plan.half, plan.src_tables.q,
-                          plan.dst_tables.q, plan.mu, plan.half_mod)
-    vm = ntt_fwd_mont(v, plan.dst_tables)
-    return ks_tail.sub_mul(data, vm, plan.src_inv, plan.src_inv_shoup,
-                           plan.dst_tables.q)
+    with span("rescale"):
+        last = data[..., -1:, :].contiguous()
+        last_c = ntt_inv(last, plan.src_tables, strip_mont=True)
+        v = ks_tail.lift_last(last_c, plan.half, plan.src_tables.q,
+                              plan.dst_tables.q, plan.mu, plan.half_mod)
+        vm = ntt_fwd_mont(v, plan.dst_tables)
+        return ks_tail.sub_mul(data, vm, plan.src_inv, plan.src_inv_shoup,
+                               plan.dst_tables.q)

@@ -109,7 +109,8 @@ def ntt_fwd_lifted(y, lift_w, lift_ws, lift_dig, t: NttTables, *,
     cuda_lib.launch("ntt_fwd_lifted", "hetpu_ntt_fwd_lifted", y.device,
                     p(y), p(out), rows, Ly, F, A, logn, p(lift_w), p(lift_ws),
                     p(lift_dig), p(t.fwd_pass_w), p(t.fwd_pass_w_shoup),
-                    p(t.q), p(t.r) if to_mont else None)
+                    p(t.q), p(t.r) if to_mont else None,
+                    nbytes=cuda_lib.plane_bytes(t.n, rows * Ly, rows * F))
     return out
 
 
@@ -161,7 +162,8 @@ def _fbc_cuda(u, fbc: rns.FbcPlan, t: NttTables, *,
                     p(fbc.phat_shoup), p(recip), p(fbc.ptot_mod_r),
                     p(fbc.ptot_shoup), p(t.fwd_pass_w),
                     p(t.fwd_pass_w_shoup), p(t.q),
-                    p(t.r) if to_mont else None)
+                    p(t.r) if to_mont else None,
+                    nbytes=cuda_lib.plane_bytes(t.n, rows * A, rows * F))
     return out
 
 
@@ -255,5 +257,6 @@ def _centered_cuda(y, t: NttTables, A: int, w, ws, strides, dig, q_src,
                     p(y), p(out), rows, Ly, F, A, logn, p(w), p(ws),
                     *strides, p(dig), p(q_src), *map(p, alpha),
                     p(t.fwd_pass_w), p(t.fwd_pass_w_shoup), p(t.q),
-                    p(t.r) if to_mont else None)
+                    p(t.r) if to_mont else None,
+                    nbytes=cuda_lib.plane_bytes(t.n, rows * Ly, rows * F))
     return out

@@ -77,5 +77,7 @@ def inner_product(ext, k, ks, q):
     p = cuda_lib.ptr
     cuda_lib.launch("inner_product", "hetpu_inner_product", ext.device,
                     p(ext), p(k), p(ks), p(q), p(out), B, J, R, N,
-                    ip_tiles(B, R, N)[0])
+                    ip_tiles(B, R, N)[0],
+                    nbytes=cuda_lib.plane_bytes(N, B * J * R, 2 * J * 2 * R,
+                                                B * 2 * R))
     return out

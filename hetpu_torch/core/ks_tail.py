@@ -127,7 +127,9 @@ def tail_src(acc, ct, g, p_mod, p_mod_shoup, q):
         p = cuda_lib.ptr
         cuda_lib.launch("ks_tail", "hetpu_ks_tail_src", acc.device,
                         p(acc), 2, R, p(ct), ct.shape[-3], L, p(out), rows,
-                        2, Lo, g, L - g, N, p(cq), p(pm), p(pms))
+                        2, Lo, g, L - g, N, p(cq), p(pm), p(pms),
+                        nbytes=cuda_lib.plane_bytes(N, rows * Lo, rows * g,
+                                                    rows * Lo))
     return out
 
 
@@ -151,7 +153,8 @@ def tail_out(acc, ct, r, p_mod, p_mod_shoup, w, w_shoup, q):
         p = cuda_lib.ptr
         cuda_lib.launch("ks_tail", "hetpu_ks_tail_out", acc.device,
                         p(acc), 2, R, p(ct), ct.shape[-3], L, p(r), p(out),
-                        rows, 2, Lo, N, p(cq), p(pm), p(pms), p(cw), p(cws))
+                        rows, 2, Lo, N, p(cq), p(pm), p(pms), p(cw), p(cws),
+                        nbytes=cuda_lib.plane_bytes(N, *[rows * Lo] * 4))
     return out
 
 
@@ -172,7 +175,8 @@ def sub_mul(x, r, w, w_shoup, q):
         cuda_lib.check_aligned("sub_mul", x, r, out)
         p = cuda_lib.ptr
         cuda_lib.launch("ks_tail", "hetpu_ks_tail_sub_mul", x.device, p(x),
-                        m, p(r), p(out), rows, Lo, N, p(cq), p(cw), p(cws))
+                        m, p(r), p(out), rows, Lo, N, p(cq), p(cw), p(cws),
+                        nbytes=cuda_lib.plane_bytes(N, *[rows * Lo] * 3))
     return out
 
 
@@ -196,7 +200,8 @@ def lift_last(last, half, q_src, q, mu, half_mod):
         p = cuda_lib.ptr
         cuda_lib.launch("ks_tail", "hetpu_ks_tail_lift_last", last.device,
                         p(last), p(out), rows, Lo, N, p(ch), p(cs), p(cq),
-                        p(cmu), p(chm))
+                        p(cmu), p(chm),
+                        nbytes=cuda_lib.plane_bytes(N, rows, rows * Lo))
     return out
 
 

@@ -231,7 +231,8 @@ def _ntt_cuda(a, t: NttTables, *, inverse: bool, c1, c2) -> torch.Tensor:
              else (t.fwd_pass_w, t.fwd_pass_w_shoup))
     p = cuda_lib.ptr
     cuda_lib.launch("ntt", "hetpu_ntt", a.device, p(a), p(out), rows, L,
-                    logn, p(w), p(ws), p(t.q), p(c1), p(c2), int(inverse))
+                    logn, p(w), p(ws), p(t.q), p(c1), p(c2), int(inverse),
+                    nbytes=cuda_lib.plane_bytes(t.n, rows * L, rows * L))
     return out
 
 

@@ -83,7 +83,9 @@ def tensor_product(x, y, q, r_inv, qinv_neg):
     p = cuda_lib.ptr
     cuda_lib.launch("tensor_product", "hetpu_tensor_product", x.device,
                     p(x), p(y), p(q), p(qinv_neg), p(out), rows, L, N,
-                    int(square))
+                    int(square),
+                    nbytes=cuda_lib.plane_bytes(
+                        N, rows * 2 * L * (1 if square else 2), rows * 3 * L))
     return out
 
 

@@ -351,7 +351,8 @@ def store(mesh, segs, cap: int, send_mask: int, epoch: int) -> None:
                     ctypes.addressof(bases), mesh.size, mesh.rank, cap,
                     ctypes.addressof(src_a), ctypes.addressof(rank_a),
                     ctypes.addressof(off_a), ctypes.addressof(len_a),
-                    len(segs), send_mask, epoch % EPOCHS)
+                    len(segs), send_mask, epoch % EPOCHS,
+                    nbytes=2 * sum(sizes))
 
 
 def read(mesh, cap: int, out: torch.Tensor | None, recv_mask: int,
@@ -374,7 +375,8 @@ def read(mesh, cap: int, out: torch.Tensor | None, recv_mask: int,
     cuda_lib.launch("peer_permute", "hetpu_peer_read", mesh.device,
                     ctypes.addressof(bases), mesh.size, mesh.rank, cap,
                     out_ptr or None, out_bytes, recv_mask,
-                    ex._progress[cap][1], epoch % EPOCHS)
+                    ex._progress[cap][1], epoch % EPOCHS,
+                    nbytes=2 * out_bytes)
 
 
 def copy(dst: int, src: int, nbytes: int, device) -> None:

@@ -111,10 +111,11 @@ class Captured:
         with cuda_lib.recording() as rec, torch.cuda.graph(self.graph):
             fn()
         self.kernels = {k: n for k, n in rec.items() if n}
+        self.nbytes = {k: b for k, b in rec.nbytes.items() if b}
 
     def replay(self) -> None:
         self.graph.replay()
-        cuda_lib.count_replay(self.kernels)
+        cuda_lib.count_replay(self.kernels, self.nbytes)
 
 
 def replay_windows(fn, reps: int) -> list[float]:

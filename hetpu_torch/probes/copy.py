@@ -72,7 +72,8 @@ def copy_planes(x: torch.Tensor, rows_per_block: int = 8,
     if x.numel():
         cuda_lib.launch("copy_planes", "hetpu_copy_planes", x.device,
                         x.data_ptr(), out.data_ptr(), R, limbs, E // 4,
-                        rows_per_block, limbs if all_limbs else 1)
+                        rows_per_block, limbs if all_limbs else 1,
+                        nbytes=2 * x.nbytes)
     return out
 
 

@@ -96,7 +96,8 @@ def dot_i8(a: torch.Tensor, b: torch.Tensor,
         cuda_lib.launch("dot_i8", "hetpu_dot_i8", a.device, a.data_ptr(),
                         b.data_ptr(), out.data_ptr(), M, K, batch,
                         planes_per_block, int(a.dtype == torch.uint8),
-                        int(b.dtype == torch.uint8))
+                        int(b.dtype == torch.uint8),
+                        nbytes=a.nbytes + b.nbytes + out.nbytes)
     return out
 
 

@@ -119,7 +119,7 @@ def plane_parts(variant: str, x, w, tw, tws, q: int = Q):
         cuda_lib.launch("plane_parts", "hetpu_plane_parts", x.device,
                         x.data_ptr(), w.data_ptr(), tw.data_ptr(),
                         tws.data_ptr(), out.data_ptr(), planes, x.shape[1],
-                        q, VARIANTS.index(variant))
+                        q, VARIANTS.index(variant), nbytes=2 * x.nbytes)
     return out
 
 

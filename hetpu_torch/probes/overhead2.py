@@ -43,7 +43,8 @@ def muladd_u32(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(x)
     if x.numel():
         cuda_lib.launch("muladd_u32", "hetpu_muladd_u32", x.device,
-                        x.data_ptr(), out.data_ptr(), x.numel() // 4)
+                        x.data_ptr(), out.data_ptr(), x.numel() // 4,
+                        nbytes=2 * x.nbytes)
     return out
 
 

@@ -11,6 +11,15 @@ Counterpart of ``hetpu/utils/profiling.py``.
   call's input chained to the previous output through a one-bit tag, so
   neither overlap nor reuse of a result can shorten the measure.  Timed
   with CUDA events on the card and ``time.perf_counter`` on the CPU.
+* ``span(name)`` — the program's stage span ``hetpu/<name>``
+  (``torch.profiler.record_function``), opened only while a torch
+  profiler records (:func:`profiler_on`); otherwise one shared no-op
+  context, so an untraced call pays one check a span.  Nothing else turns
+  it on or off.  The spans land in the profiler's Chrome trace, on its
+  clock, which CUPTI aligns with the device's kernels.
+* ``stage_device_us(events, steps)`` — device µs a step of a Chrome
+  trace's kernels, copies and sets by the innermost ``hetpu/`` span open
+  on the host when each was launched (``"none"`` outside every stage).
 """
 
 from __future__ import annotations
@@ -19,8 +28,49 @@ import contextlib
 import os
 import tempfile
 import time
+from bisect import bisect_right
 
 import torch
+
+PREFIX = "hetpu/"
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+_OFF = contextlib.nullcontext()
+profiler_on = torch._C._autograd._profiler_enabled
+
+
+def span(name: str):
+    """``record_function("hetpu/" + name)`` while a torch profiler
+    records, else the shared no-op context."""
+    if profiler_on():
+        return torch.profiler.record_function(PREFIX + name)
+    return _OFF
+
+
+def stage_device_us(events: list, steps: int = 1) -> dict:
+    """Device µs a step by program stage, costliest first, from a Chrome
+    trace's ``traceEvents``: each device operation goes under the
+    innermost ``hetpu/`` span open when its launch (the runtime call of
+    the same correlation id) began."""
+    xs = [e for e in events if e.get("ph") == "X"]
+    stages = sorted((e for e in xs if e.get("cat") == "user_annotation"
+                     and e["name"].startswith(PREFIX)),
+                    key=lambda e: e["ts"])
+    launch = {e["args"]["correlation"]: e["ts"] for e in xs
+              if e.get("cat") == "cuda_runtime"
+              and "correlation" in e.get("args", {})}
+    starts = [e["ts"] for e in stages]
+    out = {}
+    for e in xs:
+        if e.get("cat") not in DEVICE_CATS:
+            continue
+        ts = launch.get(e.get("args", {}).get("correlation"), e["ts"])
+        name = "none"
+        for s in reversed(stages[:bisect_right(starts, ts)]):
+            if ts <= s["ts"] + s["dur"]:
+                name = s["name"]
+                break
+        out[name] = out.get(name, 0.0) + e["dur"] / steps
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
 def _default_dir() -> str:
