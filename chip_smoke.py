@@ -338,7 +338,8 @@ def bound_ms(*tensors) -> float:
 
 
 def compare(name, kernel_fn, plain_fn, io, ops: float = 0, imul: float = 0,
-            library=None, plain_graph: bool = False) -> dict:
+            library=None, plain_graph: bool = False,
+            written=None) -> dict:
     """Kernel vs plain version on the same inputs (exact), both timed
     eagerly (ms), the kernel also replayed with L2 cold (graph_ms);
     ``io`` lists the kernel's input tensors, its output is added.  The
@@ -347,7 +348,10 @@ def compare(name, kernel_fn, plain_fn, io, ops: float = 0, imul: float = 0,
     multiplies over the SMs' multiply lanes at the maximum SM clock.  ``library``: (fn,
     as_out) — one PyTorch call computing the same function, timed both
     ways, and ``as_out`` mapping its result to the kernel's layout for a
-    check.  ``plain_graph``: the plain version replayed too."""
+    check.  ``plain_graph``: the plain version replayed too.
+    ``written``: for a kernel that stores into part of a larger output,
+    tensors of the size it writes, counted in the bound in place of the
+    whole output."""
     got = kernel_fn()
     want = plain_fn()
     torch.cuda.synchronize()
@@ -356,7 +360,7 @@ def compare(name, kernel_fn, plain_fn, io, ops: float = 0, imul: float = 0,
         raise AssertionError(f"{name}: kernel differs from plain "
                              f"({bad} elements)")
     err = (got.to(torch.int64) - want.to(torch.int64)).abs().max().item()
-    by_bytes = bound_ms(*io, got)
+    by_bytes = bound_ms(*io, *([got] if written is None else written))
     by_ops = max(ops / INT8_OPS_PER_S, imul / imul_per_s if imul else 0) * 1e3
     r = {"max_abs_err": float(err), "ms": median_ms(kernel_fn),
          "graph_ms": probes.cold_ms(kernel_fn),
@@ -500,9 +504,13 @@ def ntt_cases(rng, ctx) -> dict:
     md = ks.moddown
     rs = ctx.rescale_plan(LEVEL).src_tables
     x = residues(rng, (B, LEVEL + 1, n), tabs.primes)
+    ct3 = residues(rng, (B, 3, LEVEL + 1, n), tabs.primes)
     return {
-        # decompose INTT [8,9,N] and the forward NTT ×R of the same shape
-        "ntt_inv": (x, tabs, dict(strip_mont=True, extra=ks.dig_inv)),
+        # decompose INTT [8,9,N], read where it lies: part 2 of a
+        # [8,3,9,N] product (rows 27 planes apart), as relinearize hands
+        # it over; the forward NTT ×R of the same shape
+        "ntt_inv": (ct3[:, 2], tabs, dict(strip_mont=True,
+                                          extra=ks.dig_inv)),
         "ntt_fwd": (x, tabs, dict(to_mont=True)),
         # rescale's one-limb INTT [8,2,1,N]
         "ntt_inv_rescale": (residues(rng, (B, 2, 1, n), rs.primes), rs,
@@ -608,19 +616,31 @@ def ntt_compare(name, x, t, kw) -> dict:
 
 def lift_compare(name, x, ks, level: int, centered: bool = False) -> dict:
     """K2 (or K6's centered lift) of the key-switch plan ``ks`` on x, the
-    [B, level+1, N] decompose-INTT output."""
+    [B, level+1, N] decompose-INTT output, stored as the decompose stores
+    it: through ``ks.ext_row`` into the digits [B, J·R, N] (the own-prime
+    limbs left untouched; the bound counts the F planes written)."""
     ft = ks.foreign_cat_tables
+    J, R = ks.num_digits, len(ks.basis_tables.primes)
+    F = len(ft.primes)
+    digits = [torch.zeros((*x.shape[:-2], J * R, x.shape[-1]),
+                          dtype=torch.int32, device=x.device)
+              for _ in range(2)]
+    written = [torch.empty((*x.shape[:-2], F, x.shape[-1]),
+                           dtype=torch.int32, device=x.device)]
+    into = [dict(out=d, out_rows=ks.ext_row) for d in digits]
     if centered:
         args = (ks.lift_w, ks.lift_ws, ks.lift_dig, ks.q[: level + 1], ft)
         return compare(
-            name, lambda: fused_ntt.ntt_fwd_centered_lift(x, *args),
-            lambda: fused_ntt.ntt_fwd_centered_lift_plain(x, *args),
+            name, lambda: fused_ntt.ntt_fwd_centered_lift(x, *args, **into[0]),
+            lambda: fused_ntt.ntt_fwd_centered_lift_plain(x, *args,
+                                                          **into[1]),
             [x, *lift_tensors(ks, ft), ks.q[: level + 1]],
-            imul=lift_imuls(x, ks))
+            imul=lift_imuls(x, ks), written=written)
     args = (ks.lift_w, ks.lift_ws, ks.lift_dig, ft)
-    return compare(name, lambda: fused_ntt.ntt_fwd_lifted(x, *args),
-                   lambda: fused_ntt.ntt_fwd_lifted_plain(x, *args),
-                   [x, *lift_tensors(ks, ft)], imul=lift_imuls(x, ks))
+    return compare(
+        name, lambda: fused_ntt.ntt_fwd_lifted(x, *args, **into[0]),
+        lambda: fused_ntt.ntt_fwd_lifted_plain(x, *args, **into[1]),
+        [x, *lift_tensors(ks, ft)], imul=lift_imuls(x, ks), written=written)
 
 
 def fbc_compare(name, u, fbc, dt) -> dict:
@@ -788,9 +808,11 @@ def k8_cases(rng) -> dict:
     """K8 at the bench_n14 B=8 level-8 tail (L=9, g=1, k=5): tail_src
     [8,2,14,N] + c01 → [8,2,6,N], tail_out → [8,2,8,N]; sub_mul at
     relinearize's mod-down [8,2,14,N] → [8,2,9,N] and at rescale's divide
-    [8,2,9,N] → [8,2,8,N], with lift_last [8,2,1,N] → [8,2,8,N].  Each
-    timed on uniform residues (the bound counts only the planes the
-    function reads), then exact on edge residues."""
+    [8,2,9,N] → [8,2,8,N], with lift_last [8,2,1,N] → [8,2,8,N]; and
+    own_limbs, the decompose's [8,9,N] (a part of [8,3,9,N]) into the
+    digits [8,19,N].  Each timed on uniform residues (the bound counts
+    only the planes the function reads and writes), then exact on edge
+    residues."""
     ctx = Context(preset("bench_n14"))
     n, L, k, g = ctx.params.poly_degree, LEVEL + 1, ctx.num_special, 1
     basis = ctx.params.moduli[:L] + ctx.params.special_moduli
@@ -841,6 +863,24 @@ def k8_cases(rng) -> dict:
                             io)
     for name, ((fn, plain), args, _) in calls(inputs(edge_residues)).items():
         exact(f"{name} edges", lambda: fn(*args), lambda: plain(*args))
+
+    # own_limbs: the decompose's own-prime limbs, d = part 2 of a
+    # [8,3,9,N] product read where it lies, into the digits [8,J·R,N] at
+    # own_row; the bound counts L planes a row in and L out
+    ks = ctx.keyswitch_plan(LEVEL)
+    J, R = ks.num_digits, len(ks.basis_tables.primes)
+    own = (ks.own_row, ks.rinv, ks.rinv_shoup, q)
+    for make in (residues, edge_residues):
+        d = make(rng, (B, 3, L, n), ctx.params.moduli[:L])[:, 2]
+        digits = [torch.zeros((B, J * R, n), dtype=torch.int32,
+                              device="cuda") for _ in range(2)]
+        fn = lambda: ks_tail.own_limbs(d, digits[0], *own)
+        plain = lambda: ks_tail.own_limbs_plain(d, digits[1], *own)
+        if make is residues:
+            out["ks_tail_own_limbs"] = compare("ks_tail_own_limbs", fn,
+                                               plain, [d], written=[d])
+        else:
+            exact("ks_tail_own_limbs edges", fn, plain)
     return out
 
 
@@ -855,7 +895,7 @@ def phase_kernels(rng) -> dict:
     for name, case in k1.items():
         out[name] = ntt_compare(name, *case)
 
-    x = k1["ntt_inv"][0]
+    x = k1["ntt_fwd"][0]
     out["ntt_fwd_lifted"] = lift_compare("ntt_fwd_lifted", x, ks, LEVEL)
 
     # K6: the centered lift of both digits [8,9,N]→[8,19,N] (x holds

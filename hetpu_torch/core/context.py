@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from . import centered_fbc, nt, rns
+from .cuda_lib import RowMap
 from .modular import from_u32, mont_constants, shoup_precompute
 from .ntt import NttTables, build_tables
 from .params import HeParams
@@ -95,6 +96,11 @@ class KeySwitchPlan:
     lift_w: torch.Tensor         # [F, α]  fused lift+NTT weights
     lift_ws: torch.Tensor        # [F, α]
     lift_dig: torch.Tensor       # [F] int32 digit index per foreign row
+    # where the decompose stores its limbs in a row of digits [J, R]
+    # (limb j·R + r): the F lifted rows, then each own prime i (digit
+    # i // α, limb i); together every one of the J·R limbs once
+    ext_row: RowMap              # [F] into J·R
+    own_row: RowMap              # [ℓ+1] into J·R
     moddown: ModDownPlan
 
 
@@ -255,6 +261,13 @@ class Context:
                 lift_ws[row] = ((lift_w[row].astype(np.uint64) << np.uint64(32))
                                 // np.uint64(r)).astype(np.uint32)
                 row += 1
+        ext_row = np.concatenate([j * R + f for j, f in
+                                  enumerate(foreign_idx)])
+        own_row = np.arange(n_data) // alpha * R + np.arange(n_data)
+        if not np.array_equal(np.sort(np.concatenate([ext_row, own_row])),
+                              np.arange(J * R)):
+            raise ValueError(f"keyswitch_plan({level}): the digit rows do "
+                             f"not cover the {J}·{R} limbs once each")
         return KeySwitchPlan(
             level=level,
             alpha=alpha,
@@ -276,6 +289,10 @@ class Context:
             lift_w=self._t(lift_w),
             lift_ws=self._t(lift_ws),
             lift_dig=torch.from_numpy(lift_dig).to(self.device),
+            ext_row=RowMap(torch.from_numpy(ext_row.astype(np.int32)).to(
+                self.device), J * R),
+            own_row=RowMap(torch.from_numpy(own_row.astype(np.int32)).to(
+                self.device), J * R),
             moddown=moddown,
         )
 

@@ -43,8 +43,10 @@ import os
 import shutil
 import subprocess
 import threading
+from dataclasses import dataclass
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from ..utils.profiling import profiler_on
@@ -73,19 +75,21 @@ _recorded = None           # counts of the capture in progress (recording)
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 _Q = ctypes.c_ulonglong
 _SIGNATURES = {
-    # x, out, rows, L, logn, w, ws, q, c1, c2, inverse, stream
-    "hetpu_ntt": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P),
-    # y, out, rows, Ly, F, A, logn, lw, lws, dig, w, ws, q, c1, stream
+    # x, out, rows, L, logn, w, ws, q, c1, c2, inverse, in_stride, stream
+    "hetpu_ntt": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P),
+    # y, out, rows, Ly, F, A, logn, lw, lws, dig, w, ws, q, c1, out_map,
+    # out_limbs, stream
     "hetpu_ntt_fwd_lifted": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-                             _P, _P, _P, _P),
+                             _P, _P, _P, _P, _I, _P),
     # u, out, rows, A, F, logn, phat, phat_shoup, recip, ptot,
     # ptot_shoup, w, ws, q, c1, stream
     "hetpu_ntt_fwd_fbc": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                           _P, _P, _P, _P),
     # y, out, rows, Ly, F, A, logn, cw, cws, wf, wi, dig, q_src, recip,
-    # pm, pms, w, ws, q, c1, stream
+    # pm, pms, w, ws, q, c1, out_map, out_limbs, stream
     "hetpu_ntt_fwd_centered": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _I,
-                               _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+                               _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                               _P),
     # ext, k, ks, q, out, B, J, R, n, bt, stream
     "hetpu_inner_product": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, y, q, qinv_neg, out, rows, L, n, square, stream
@@ -102,6 +106,9 @@ _SIGNATURES = {
     "hetpu_ks_tail_sub_mul": (_P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P),
     # last, out, rows, Lo, n, half, q_src, q, mu, half_mod, stream
     "hetpu_ks_tail_lift_last": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
+                                _P),
+    # d, d_stride, out, rows, L, n, out_map, out_limbs, q, w, w_shoup, stream
+    "hetpu_ks_tail_own_limbs": (_P, _I, _P, _I, _I, _I, _P, _I, _P, _P, _P,
                                 _P),
     # y, out, rows, S, F, n, consts, has_alpha, has_extra, stream
     "hetpu_centered_fbc": (_P, _P, _I, _I, _I, _I, _P, _I, _I, _P),
@@ -282,6 +289,84 @@ def check_i32(name: str, *tensors: torch.Tensor) -> None:
             raise TypeError(f"{name}: expected int32 tensors, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def row_stride(t: torch.Tensor) -> int | None:
+    """The planes between consecutive rows of ``t`` [..., L, N] when the
+    kernels can read it in place: its last two axes contiguous and its
+    leading axes one run of rows a fixed multiple of N words apart, as a
+    part ``ct[..., p, :, :]`` of a contiguous ciphertext (3L planes a row)
+    is; L for a contiguous ``t``.  None for any other layout."""
+    if t.dim() < 2:
+        return None
+    L, n = t.shape[-2:]
+    if t.is_contiguous():
+        return L
+    if t.stride(-1) != 1 or (L > 1 and t.stride(-2) != n):
+        return None
+    lead = [(s, st) for s, st in zip(t.shape[:-2], t.stride()[:-2]) if s > 1]
+    if not lead or lead[-1][1] % n or lead[-1][1] < L * n:
+        return None
+    step = lead[-1][1]
+    for s, st in reversed(lead):
+        if st != step:
+            return None
+        step = st * s
+    return lead[-1][1] // n
+
+
+def check_rows(name: str, t: torch.Tensor) -> int:
+    """``t``'s :func:`row_stride` for an int32 ``t``; raises as
+    :func:`check_i32` where there is none."""
+    if t.dtype != torch.int32:
+        raise TypeError(f"{name}: expected int32 tensors, got {t.dtype}")
+    stride = row_stride(t)
+    if stride is None:
+        raise ValueError(f"{name}: tensors must be contiguous, or rows of "
+                         f"contiguous planes one stride apart")
+    return stride
+
+
+@dataclass(frozen=True)
+class RowMap:
+    """Where a kernel stores its output rows: output row f of a launch at
+    limb ``rows[f]`` of an output row of ``limbs`` limbs.  ``rows`` (int32
+    [F], on the kernel's device) is checked once, on the host, when the map
+    is made: its entries are distinct and lie in [0, limbs).  The kernels
+    store through it unchecked, so a map reaches them only as a RowMap."""
+    rows: torch.Tensor
+    limbs: int
+
+    def __post_init__(self):
+        r = self.rows.cpu().numpy()
+        if self.rows.dtype != torch.int32 or r.ndim != 1 \
+                or not self.rows.is_contiguous() \
+                or len(np.unique(r)) != r.size \
+                or (r.size and (r.min() < 0 or r.max() >= self.limbs)):
+            raise ValueError(f"RowMap: {tuple(self.rows.shape)} "
+                             f"{self.rows.dtype} rows must be distinct int32 "
+                             f"limbs in [0, {self.limbs})")
+
+
+def check_map(name: str, out: torch.Tensor, out_rows: RowMap,
+              lead: tuple, count: int, n: int, device) -> int:
+    """The limbs M of ``out`` [*lead, M, N] (int32, contiguous, on
+    ``device``), into which ``count`` rows are stored through ``out_rows``
+    (a :class:`RowMap` of ``count`` rows into M limbs); raises otherwise."""
+    if not isinstance(out_rows, RowMap):
+        raise TypeError(f"{name}: out_rows must be a cuda_lib.RowMap, got "
+                        f"{type(out_rows).__name__}")
+    check_i32(name, out)
+    if tuple(out.shape[:-2]) != tuple(lead) or out.shape[-1] != n \
+            or out.shape[-2] != out_rows.limbs \
+            or out_rows.rows.shape != (count,) \
+            or out.device != device or out_rows.rows.device != device:
+        raise ValueError(f"{name}: out {tuple(out.shape)} on {out.device} "
+                         f"and a map of {tuple(out_rows.rows.shape)} rows "
+                         f"into {out_rows.limbs} limbs on "
+                         f"{out_rows.rows.device} for {count} rows of "
+                         f"{(*lead, n)} on {device}")
+    return out_rows.limbs
 
 
 def check_aligned(name: str, *tensors: torch.Tensor) -> None:

@@ -13,10 +13,13 @@ bit-exact with its reference twin.
 On a CUDA tensor the transforms run in hand-written kernels (``ntt``,
 ``ntt_fwd_lifted``, ``ntt_fwd_fbc``, ``inner_product``, and with
 ``centered_fbc=True`` ``ntt_fwd_centered`` in place of the two fused
-ones), and so do the ct·ct product (``tensor_product``) and the
-mod-down and rescale tails (``ks_tail``); the other elementwise steps
-(Galois gathers, the plaintext and digit Shoup multiplies,
-concatenations, mod add/sub) stay plain PyTorch.
+ones), and so do the ct·ct product (``tensor_product``), the mod-down
+and rescale tails and the digits' own-prime limbs (``ks_tail``).  The key
+switch's digits are built in place: the kernels read the switched part
+where it lies in its ciphertext and store each digit limb once at its
+place, so no copy or concatenation runs in the decomposition.  The other
+elementwise steps (Galois gathers, the plaintext Shoup multiplies, the
+ops' concatenations and stacks, mod add/sub) stay plain PyTorch.
 
 While a torch profiler records, each stage opens its span
 (:func:`..utils.profiling.span`): ``hetpu/mul.tensor`` (the tensor
@@ -39,7 +42,7 @@ from __future__ import annotations
 
 import torch
 
-from . import fused_ntt, galois, ip_kernel, ks_tail
+from . import cuda_lib, fused_ntt, galois, ip_kernel, ks_tail
 from .centered_fbc import CenteredFbcPlan
 from .ciphertext import Ciphertext, Plaintext, check_add_compat
 from .context import Context, KeySwitchPlan, RescalePlan
@@ -142,37 +145,40 @@ class Evaluator:
 
     def _decompose(self, d: torch.Tensor, level: int) -> torch.Tensor:
         """Digit-decompose poly ``d`` ([..., ℓ+1, N] Montgomery NTT) into
-        the key basis: standard-form NTT digits [..., J, R, N].
+        the key basis: standard-form NTT digits ext [..., J, R, N], built
+        in place, each of its J·R limbs a row written once.
 
-        The INTT folds in the digit-local D̂⁻¹ and the Montgomery strip.
-        The lift of every digit to its FOREIGN primes runs in the
-        forward-NTT kernel's prologue, one launch: ``ntt_fwd_lifted``, or
-        with ``centered_fbc`` the centered lift (``ntt_fwd_centered``).  On a
-        digit's own primes the lifted value is the input residue itself
-        (one Shoup multiply by R⁻¹, no NTT)."""
+        ``d`` is read where it lies (a part ``ct[..., p, :, :]`` of a
+        ciphertext: :func:`.cuda_lib.row_stride`; another layout is copied
+        first).  The INTT folds in the digit-local D̂⁻¹ and the Montgomery
+        strip.  The lift of every digit to its FOREIGN primes runs in the
+        forward-NTT kernel's prologue, one launch that stores each lifted
+        limb at its place (``plan.ext_row``): ``ntt_fwd_lifted``, or with
+        ``centered_fbc`` the centered lift (``ntt_fwd_centered``).  On a
+        digit's own primes the lifted value is the input residue itself:
+        one Shoup multiply by R⁻¹, no NTT (``ks_tail.own_limbs``, at
+        ``plan.own_row``)."""
         with span("ks.decompose"):
             plan: KeySwitchPlan = self.ctx.keyswitch_plan(level)
             tabs = self.ctx.tables(level)
-            d = d.contiguous()
+            if cuda_lib.row_stride(d) is None:
+                d = d.contiguous()
+            J, R = plan.num_digits, len(plan.basis_tables.primes)
+            ext = torch.empty((*d.shape[:-2], J, R, d.shape[-1]),
+                              dtype=torch.int32, device=d.device)
+            rows = ext.view(*d.shape[:-2], J * R, d.shape[-1])
             y = ntt_inv(d, tabs, strip_mont=True, extra=plan.dig_inv)
             lift = (plan.lift_w, plan.lift_ws, plan.lift_dig)
             if self.centered_fbc:
-                lifted_cat = fused_ntt.ntt_fwd_centered_lift(
-                    y, *lift, plan.q[: level + 1], plan.foreign_cat_tables)
+                fused_ntt.ntt_fwd_centered_lift(
+                    y, *lift, plan.q[: level + 1], plan.foreign_cat_tables,
+                    out=rows, out_rows=plan.ext_row)
             else:
-                lifted_cat = fused_ntt.ntt_fwd_lifted(y, *lift,
-                                                      plan.foreign_cat_tables)
-            exts = []
-            off = 0
-            for di, (lo, hi) in enumerate(plan.digit_bounds):
-                nf = len(plan.foreign_idx[di])
-                lifted = lifted_cat[..., off:off + nf, :]
-                off += nf
-                direct = shoup_mul(d[..., lo:hi, :], plan.rinv[lo:hi],
-                                   plan.rinv_shoup[lo:hi], tabs.q[lo:hi])
-                exts.append(torch.cat([lifted[..., :lo, :], direct,
-                                       lifted[..., lo:, :]], dim=-2))
-            return torch.stack(exts, dim=-3)
+                fused_ntt.ntt_fwd_lifted(y, *lift, plan.foreign_cat_tables,
+                                         out=rows, out_rows=plan.ext_row)
+            ks_tail.own_limbs(d, rows, plan.own_row, plan.rinv,
+                              plan.rinv_shoup, tabs.q)
+            return ext
 
     def _inner_product_raw(self, ext: torch.Tensor, level: int,
                            ksk: KSwitchKey) -> torch.Tensor:

@@ -23,7 +23,11 @@ CTA of a cluster builds only the columns its threads hold:
 
 Every wrapper checks dtype and contiguity on either device; then a CPU
 tensor takes the plain twin (``*_plain``) and a CUDA tensor launches the
-kernel or raises.
+kernel or raises.  The two lifts take an optional ``out`` [..., M, N] and
+``out_rows`` (a :class:`.cuda_lib.RowMap` of F rows into M limbs): output
+row f is then stored at limb ``out_rows.rows[f]`` of ``out``'s row, so the
+evaluator's key-switch digits [..., J, R, N] are built in place
+(``KeySwitchPlan.ext_row``).
 """
 
 from __future__ import annotations
@@ -73,26 +77,62 @@ def _lift_plain(y, lift_w, lift_dig, q_src, t: NttTables, *,
     return ntt_fwd_plain(acc.to(torch.int32), t, to_mont=to_mont)
 
 
+def _placed(res, out, out_rows):
+    """``res`` [..., F, N], or ``out`` with row f of ``res`` at limb
+    ``out_rows.rows[f]`` (the plain twins' store, ``index_copy_``)."""
+    if out is None and out_rows is None:
+        return res
+    cuda_lib.check_map("lift", out, out_rows, res.shape[:-2],
+                       res.shape[-2], res.shape[-1], res.device)
+    return out.index_copy_(-2, out_rows.rows.to(torch.int64), res)
+
+
+def _out_limbs(name, y, F, n, out, out_rows) -> int:
+    """The limbs M of an output row: F without ``out``, else ``out``'s
+    [..., M, N] (y's leading axes) that ``out_rows`` maps F rows into."""
+    if out is None and out_rows is None:
+        return F
+    return cuda_lib.check_map(name, out, out_rows, y.shape[:-2], F, n,
+                              y.device)
+
+
+def _rows(out_rows):
+    return None if out_rows is None else out_rows.rows
+
+
+def _new_out(y, F, n, out):
+    return out if out is not None else torch.empty(
+        (*y.shape[:-2], F, n), dtype=torch.int32, device=y.device)
+
+
 def ntt_fwd_lifted_plain(y, lift_w, lift_ws, lift_dig, t: NttTables, *,
-                         to_mont: bool = False) -> torch.Tensor:
+                         to_mont: bool = False, out=None,
+                         out_rows=None) -> torch.Tensor:
     """Plain twin of the ``ntt_fwd_lifted`` kernel: y int32 [..., Ly, N]
-    standard-form planes → [..., F, N] over the foreign basis ``t``."""
-    return _lift_plain(y, lift_w, lift_dig, None, t, to_mont=to_mont)
+    standard-form planes → [..., F, N] over the foreign basis ``t`` (or
+    into ``out`` at ``out_rows``)."""
+    return _placed(_lift_plain(y, lift_w, lift_dig, None, t,
+                               to_mont=to_mont), out, out_rows)
 
 
 def ntt_fwd_lifted(y, lift_w, lift_ws, lift_dig, t: NttTables, *,
-                   to_mont: bool = False) -> torch.Tensor:
+                   to_mont: bool = False, out=None,
+                   out_rows=None) -> torch.Tensor:
     """Fused digit lift + forward NTT over the concatenated-foreign key
     basis: out[..., f, :] = ntt_fwd(Σ_i y[..., dig_f·α+i, :]·lift_w[f, i])
     row f, in one launch of all planes (a plane over
     :func:`ntt_passes.cluster_size` CTAs, fixed by N).  y: [..., Ly, N]
     standard-form planes (the decompose INTT output); lift_w/lift_ws
-    [F, α]; lift_dig int32 [F]."""
+    [F, α]; lift_dig int32 [F].  With ``out`` [..., M, N] and ``out_rows``
+    (a :class:`.cuda_lib.RowMap` of F rows into M limbs), row f is stored
+    at limb ``out_rows.rows[f]`` of ``out`` and ``out`` is returned."""
     cuda_lib.check_i32("ntt_fwd_lifted", y, lift_w, lift_ws, lift_dig, t.q)
+    F, A = lift_w.shape
+    M = _out_limbs("ntt_fwd_lifted", y, F, t.n, out, out_rows)
     if not cuda_lib.on_card(y, lift_w, lift_ws, lift_dig, t.q):
         return ntt_fwd_lifted_plain(y, lift_w, lift_ws, lift_dig, t,
-                                    to_mont=to_mont)
-    F, A = lift_w.shape
+                                    to_mont=to_mont, out=out,
+                                    out_rows=out_rows)
     if len(t.primes) != F or lift_ws.shape != lift_w.shape \
             or lift_dig.shape != (F,):
         raise ValueError("ntt_fwd_lifted: lift_w/lift_ws [F, A], lift_dig "
@@ -100,8 +140,7 @@ def ntt_fwd_lifted(y, lift_w, lift_ws, lift_dig, t: NttTables, *,
     Ly = y.shape[-2]
     logn = check_plane_shape("ntt_fwd_lifted", y, t.n, Ly)
     rows = y.numel() // (Ly * t.n)
-    out = torch.empty((*y.shape[:-2], F, t.n), dtype=torch.int32,
-                      device=y.device)
+    out = _new_out(y, F, t.n, out)
     cuda_lib.check_aligned("ntt_fwd_lifted", out)
     if rows == 0:
         return out
@@ -110,6 +149,7 @@ def ntt_fwd_lifted(y, lift_w, lift_ws, lift_dig, t: NttTables, *,
                     p(y), p(out), rows, Ly, F, A, logn, p(lift_w), p(lift_ws),
                     p(lift_dig), p(t.fwd_pass_w), p(t.fwd_pass_w_shoup),
                     p(t.q), p(t.r) if to_mont else None,
+                    p(_rows(out_rows)), M,
                     nbytes=cuda_lib.plane_bytes(t.n, rows * Ly, rows * F))
     return out
 
@@ -172,16 +212,17 @@ def _fbc_cuda(u, fbc: rns.FbcPlan, t: NttTables, *,
 # ----------------------------------------------------------------------
 
 def ntt_fwd_centered_lift_plain(y, lift_w, lift_ws, lift_dig, q_src,
-                                t: NttTables, *,
-                                to_mont: bool = False) -> torch.Tensor:
+                                t: NttTables, *, to_mont: bool = False,
+                                out=None, out_rows=None) -> torch.Tensor:
     """Plain twin of :func:`ntt_fwd_centered_lift`: the signed sum of the
     centered source values, then the flat forward NTT."""
-    return _lift_plain(y, lift_w, lift_dig, q_src, t, to_mont=to_mont)
+    return _placed(_lift_plain(y, lift_w, lift_dig, q_src, t,
+                               to_mont=to_mont), out, out_rows)
 
 
 def ntt_fwd_centered_lift(y, lift_w, lift_ws, lift_dig, q_src,
-                          t: NttTables, *,
-                          to_mont: bool = False) -> torch.Tensor:
+                          t: NttTables, *, to_mont: bool = False, out=None,
+                          out_rows=None) -> torch.Tensor:
     """Centered digit lift of every digit + forward NTT over the
     concatenated-foreign key basis ``t``, one ``ntt_fwd_centered``
     launch: :func:`ntt_fwd_lifted` with each source residue y taken as
@@ -189,23 +230,25 @@ def ntt_fwd_centered_lift(y, lift_w, lift_ws, lift_dig, q_src,
     each source plane.  With a key-switch plan's ``lift_w`` / ``lift_ws``
     / ``lift_dig`` (the transposed C of the digits' centered lift plans)
     this equals ``ntt_fwd(cat_d(lift_plan(ks, d).apply(y[..., lo_d:hi_d,
-    :])), t)``."""
+    :])), t)``; ``out`` and ``out_rows`` as :func:`ntt_fwd_lifted`'s."""
     cuda_lib.check_i32("ntt_fwd_centered", y, lift_w, lift_ws, lift_dig,
                        q_src)
     Ly = y.shape[-2] if y.dim() >= 2 else -1
     if q_src.numel() != Ly:
         raise ValueError(f"ntt_fwd_centered: shape {tuple(y.shape)} for "
                          f"{q_src.numel()} source primes")
+    F, A = lift_w.shape
+    M = _out_limbs("ntt_fwd_centered", y, F, t.n, out, out_rows)
     if not cuda_lib.on_card(y, lift_w, lift_ws, lift_dig, q_src, t.q):
         return ntt_fwd_centered_lift_plain(y, lift_w, lift_ws, lift_dig,
-                                           q_src, t, to_mont=to_mont)
-    F, A = lift_w.shape
+                                           q_src, t, to_mont=to_mont,
+                                           out=out, out_rows=out_rows)
     if len(t.primes) != F or lift_ws.shape != lift_w.shape \
             or lift_dig.shape != (F,):
         raise ValueError("ntt_fwd_centered: lift_w/lift_ws [F, A], lift_dig "
                          "[F] and tables of F primes expected")
     return _centered_cuda(y, t, A, lift_w, lift_ws, (A, 1), lift_dig, q_src,
-                          (None,) * 3, to_mont)
+                          (None,) * 3, to_mont, out, M, out_rows)
 
 
 def ntt_fwd_centered_fbc_plain(u, plan: centered_fbc.CenteredFbcPlan,
@@ -234,21 +277,23 @@ def ntt_fwd_centered_fbc(u, plan: centered_fbc.CenteredFbcPlan,
     alpha = ((plan.recip, plan.p_mod, plan.p_mod_shoup) if plan.has_alpha
              else (None,) * 3)
     return _centered_cuda(u, t, plan.S, plan.c, plan.c_shoup, (1, plan.F),
-                          None, plan.q_src, alpha, to_mont)
+                          None, plan.q_src, alpha, to_mont, None, plan.F,
+                          None)
 
 
 def _centered_cuda(y, t: NttTables, A: int, w, ws, strides, dig, q_src,
-                   alpha, to_mont: bool) -> torch.Tensor:
-    """Launch the ``ntt_fwd_centered`` kernel: W[f, i] at
-    w[f·strides[0] + i·strides[1]]; source plane dig_f·A + i (i without
-    ``dig``); ``alpha``: (recip, P mod q_f, its Shoup companions) of the
-    α row, or three Nones."""
+                   alpha, to_mont: bool, out, M: int,
+                   out_rows) -> torch.Tensor:
+    """Launch the ``ntt_fwd_centered`` kernel into ``out`` (M limbs a row;
+    row f at limb ``out_rows.rows[f]``; a new [..., F, N] without):
+    W[f, i] at w[f·strides[0] + i·strides[1]]; source plane dig_f·A + i
+    (i without ``dig``); ``alpha``: (recip, P mod q_f, its Shoup
+    companions) of the α row, or three Nones."""
     F = len(t.primes)
     Ly = y.shape[-2]
     logn = check_plane_shape("ntt_fwd_centered", y, t.n, Ly)
     rows = y.numel() // (Ly * t.n)
-    out = torch.empty((*y.shape[:-2], F, t.n), dtype=torch.int32,
-                      device=y.device)
+    out = _new_out(y, F, t.n, out)
     cuda_lib.check_aligned("ntt_fwd_centered", out)
     if rows == 0:
         return out
@@ -257,6 +302,6 @@ def _centered_cuda(y, t: NttTables, A: int, w, ws, strides, dig, q_src,
                     p(y), p(out), rows, Ly, F, A, logn, p(w), p(ws),
                     *strides, p(dig), p(q_src), *map(p, alpha),
                     p(t.fwd_pass_w), p(t.fwd_pass_w_shoup), p(t.q),
-                    p(t.r) if to_mont else None,
+                    p(t.r) if to_mont else None, p(_rows(out_rows)), M,
                     nbytes=cuda_lib.plane_bytes(t.n, rows * Ly, rows * F))
     return out

@@ -1,4 +1,5 @@
-"""The elementwise tails of the key switch's mod-down and of the rescale.
+"""The elementwise tails of the key switch's mod-down and of the rescale,
+and the own-prime limbs of its digit decomposition.
 
 Counterpart of the Shoup, Barrett and modular add/subtract steps of
 hetpu's ``_relin_rescale_fused`` (``hetpu/core/evaluator.py:410``),
@@ -16,7 +17,10 @@ one entry point a function here) and a CPU tensor takes the function's
 * :func:`sub_mul` — (x − r)·w, the divide of ``_mod_down`` and of
   ``_div_round_last``;
 * :func:`lift_last` — ``_div_round_last``'s one-limb middle: the rounded
-  last limb on every remaining prime.
+  last limb on every remaining prime;
+* :func:`own_limbs` — the decompose's limbs on each digit's own primes
+  (d·R⁻¹, hetpu's ``shoup_mul`` in ``_decompose``), stored at their
+  places in the digits [..., J, R, N].
 
 Per-limb constants are [L, 1] columns (as the context's plans hold them);
 the kernel reads its operands' slices in place.
@@ -71,6 +75,17 @@ def lift_last_plain(last, half, q_src, q, mu, half_mod):
     q_src >> 1 and q_src [1, 1], the others [Lo, 1]."""
     v = barrett_reduce_u32(mod_add(last, half, q_src), q, mu)
     return mod_sub(v, half_mod, q)
+
+
+def own_limbs_plain(d, out, out_rows, w, w_shoup, q):
+    """d [..., L, N], out [..., M, N], out_rows a
+    :class:`.cuda_lib.RowMap` of L rows into M limbs, the constants [L, 1]:
+    out[..., out_rows.rows[l], :] = d[..., l, :]·w_l mod q_l, in place;
+    returns out."""
+    cuda_lib.check_map("own_limbs", out, out_rows, d.shape[:-2],
+                       d.shape[-2], d.shape[-1], d.device)
+    return out.index_copy_(-2, out_rows.rows.to(torch.int64),
+                           shoup_mul(d, w, w_shoup, q))
 
 
 # ----------------------------------------------------------------------
@@ -202,6 +217,30 @@ def lift_last(last, half, q_src, q, mu, half_mod):
                         p(last), p(out), rows, Lo, N, p(ch), p(cs), p(cq),
                         p(cmu), p(chm),
                         nbytes=cuda_lib.plane_bytes(N, rows, rows * Lo))
+    return out
+
+
+def own_limbs(d, out, out_rows, w, w_shoup, q):
+    """:func:`own_limbs_plain`'s function; ``ks_tail`` on a CUDA tensor,
+    which reads d where it lies (rows one stride apart,
+    :func:`.cuda_lib.row_stride`) and writes only out's limbs
+    ``out_rows.rows``."""
+    if not cuda_lib.on_card(d, out, w, w_shoup, q):
+        return own_limbs_plain(d, out, out_rows, w, w_shoup, q)
+    stride = cuda_lib.check_rows("own_limbs", d)
+    L, N = d.shape[-2:]
+    M = cuda_lib.check_map("own_limbs", out, out_rows, d.shape[:-2], L, N,
+                           d.device)
+    _check("own_limbs", out)
+    cq, cw, cws = _consts("own_limbs", L, q, w, w_shoup)
+    rows = d.numel() // (L * N)
+    if rows:
+        cuda_lib.check_aligned("own_limbs", d, out)
+        p = cuda_lib.ptr
+        cuda_lib.launch("ks_tail", "hetpu_ks_tail_own_limbs", d.device,
+                        p(d), stride, p(out), rows, L, N, p(out_rows.rows), M,
+                        p(cq), p(cw), p(cws),
+                        nbytes=cuda_lib.plane_bytes(N, rows * L, rows * L))
     return out
 
 

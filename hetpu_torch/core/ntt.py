@@ -210,19 +210,21 @@ def check_plane_shape(name: str, x: torch.Tensor, n: int,
     return logn
 
 
-def _ntt_cuda(a, t: NttTables, *, inverse: bool, c1, c2) -> torch.Tensor:
+def _ntt_cuda(a, t: NttTables, *, inverse: bool, c1, c2,
+              in_stride: int) -> torch.Tensor:
     """Launch the ``ntt`` kernel (a plane over
-    :func:`ntt_passes.cluster_size` CTAs, fixed by N)."""
+    :func:`ntt_passes.cluster_size` CTAs, fixed by N) on ``a``'s rows,
+    ``in_stride`` planes apart; the output is contiguous."""
     L = len(t.primes)
     cuda_lib.on_card(a, t.q)
     consts = [c for c in (c1, c2) if c is not None]
-    cuda_lib.check_i32("ntt", a, t.q, *consts)
+    cuda_lib.check_i32("ntt", t.q, *consts)
     for c in consts:
         if c.numel() != L:
             raise ValueError(f"ntt: epilogue constant has {c.numel()} "
                              f"entries for {L} limbs")
     logn = check_plane_shape("ntt", a, t.n, L)
-    out = torch.empty_like(a)
+    out = torch.empty(a.shape, dtype=torch.int32, device=a.device)
     cuda_lib.check_aligned("ntt", a, out)
     rows = a.numel() // (L * t.n)
     if rows == 0:
@@ -232,7 +234,7 @@ def _ntt_cuda(a, t: NttTables, *, inverse: bool, c1, c2) -> torch.Tensor:
     p = cuda_lib.ptr
     cuda_lib.launch("ntt", "hetpu_ntt", a.device, p(a), p(out), rows, L,
                     logn, p(w), p(ws), p(t.q), p(c1), p(c2), int(inverse),
-                    nbytes=cuda_lib.plane_bytes(t.n, rows * L, rows * L))
+                    in_stride, nbytes=cuda_lib.plane_bytes(t.n, rows * L, rows * L))
     return out
 
 
@@ -243,7 +245,7 @@ def ntt_fwd(a: torch.Tensor, t: NttTables, *,
     cuda_lib.check_i32("ntt", a)
     if cuda_lib.on_card(a):
         return _ntt_cuda(a, t, inverse=False, c1=t.r if to_mont else None,
-                         c2=None)
+                         c2=None, in_stride=len(t.primes))
     return ntt_fwd_plain(a, t, to_mont=to_mont)
 
 
@@ -256,9 +258,11 @@ def ntt_fwd_mont(a: torch.Tensor, t: NttTables) -> torch.Tensor:
 def ntt_inv(a: torch.Tensor, t: NttTables, *, strip_mont: bool = False,
             extra=None) -> torch.Tensor:
     """Inverse NTT (see :func:`ntt_inv_plain`); the ``ntt`` kernel on a
-    CUDA tensor."""
-    cuda_lib.check_i32("ntt", a)
+    CUDA tensor.  ``a`` is read where it lies when its rows are one stride
+    apart (:func:`.cuda_lib.row_stride`: a part ``ct[..., p, :, :]`` of a
+    ciphertext); any other non-contiguous layout is refused."""
+    stride = cuda_lib.check_rows("ntt", a)
     if cuda_lib.on_card(a):
         c1, c2 = _inv_constants(t, strip_mont, extra)
-        return _ntt_cuda(a, t, inverse=True, c1=c1, c2=c2)
+        return _ntt_cuda(a, t, inverse=True, c1=c1, c2=c2, in_stride=stride)
     return ntt_inv_plain(a, t, strip_mont=strip_mont, extra=extra)

@@ -124,7 +124,10 @@ struct LiftLoad {
 
 // Output plane blockIdx.x / C = (row, f) of a launch over rows * F planes:
 // W[f, i] at w[f * wf + i * wi]; dig, q_src, recip, pm, pms may be null
-// where the form does not read them; times c1[f] when c1 is given.
+// where the form does not read them; times c1[f] when c1 is given.  The
+// plane is stored at plane row*F + f of `out`, or with `out_map` at plane
+// row*out_limbs + out_map[f] (the key-switch digits [J, R] of a row, built
+// in place).
 template <int C, bool kCentered, bool kAlpha>
 __device__ __forceinline__ void lift_plane(
     uint32_t* smem, const uint32_t* __restrict__ y, uint32_t* __restrict__ out,
@@ -134,7 +137,8 @@ __device__ __forceinline__ void lift_plane(
     const float* __restrict__ recip, const uint32_t* __restrict__ pm,
     const uint32_t* __restrict__ pms, const uint32_t* __restrict__ tw,
     const uint32_t* __restrict__ tws, const uint32_t* __restrict__ q,
-    const uint32_t* __restrict__ c1) {
+    const uint32_t* __restrict__ c1, const int* __restrict__ out_map,
+    int out_limbs) {
   const size_t plane = blockIdx.x / C;
   const int f = static_cast<int>(plane % F);
   const size_t row = plane / F;
@@ -149,8 +153,11 @@ __device__ __forceinline__ void lift_plane(
       y + ((row * Ly) << logn), w + f * wf, ws + f * wf, q_src, recip,
       A, wi, dig == nullptr ? 0 : dig[f] * A, Ly, logn,
       kAlpha ? pm[f] : 0u, kAlpha ? pms[f] : 0u, qf};
+  const size_t dst = out_map == nullptr
+                         ? plane
+                         : row * out_limbs + static_cast<size_t>(out_map[f]);
   fwd_plane<C>(smem, logn, tw + toff, tws + toff, qf, load,
-               out + (plane << logn), c1 != nullptr, c, cs);
+               out + (dst << logn), c1 != nullptr, c, cs);
 }
 
 // K2: the digit lift, lw / lws [F, A], source planes dig[f]*A + i
@@ -164,11 +171,12 @@ __global__ void __launch_bounds__(kThreads, kMinCtas)
                 const uint32_t* __restrict__ tw,
                 const uint32_t* __restrict__ tws,
                 const uint32_t* __restrict__ q,
-                const uint32_t* __restrict__ c1) {
+                const uint32_t* __restrict__ c1,
+                const int* __restrict__ out_map, int out_limbs) {
   extern __shared__ uint32_t s[];
   lift_plane<C, false, false>(s, y, out, Ly, A, F, logn, lw, lws, A, 1, dig,
                               nullptr, nullptr, nullptr, nullptr, tw, tws, q,
-                              c1);
+                              c1, out_map, out_limbs);
 }
 
 // K3: the conversion of A premultiplied source planes, phat [A, F]
@@ -187,7 +195,7 @@ __global__ void __launch_bounds__(kThreads, kMinCtas)
   extern __shared__ uint32_t s[];
   lift_plane<C, false, true>(s, u, out, A, A, F, logn, phat, phat_shoup, 1,
                              F, nullptr, nullptr, recip, ptot, ptot_shoup,
-                             tw, tws, q, c1);
+                             tw, tws, q, c1, nullptr, F);
 }
 
 // K5's path form: the centered lift (kAlpha false) or conversion
@@ -205,10 +213,12 @@ __global__ void __launch_bounds__(kThreads, kMinCtas)
                     const uint32_t* __restrict__ tw,
                     const uint32_t* __restrict__ tws,
                     const uint32_t* __restrict__ q,
-                    const uint32_t* __restrict__ c1) {
+                    const uint32_t* __restrict__ c1,
+                    const int* __restrict__ out_map, int out_limbs) {
   extern __shared__ uint32_t s[];
   lift_plane<C, true, kAlpha>(s, y, out, Ly, A, F, logn, w, ws, wf, wi, dig,
-                              q_src, recip, pm, pms, tw, tws, q, c1);
+                              q_src, recip, pm, pms, tw, tws, q, c1, out_map,
+                              out_limbs);
 }
 
 int launched(cudaError_t err) {
@@ -216,19 +226,30 @@ int launched(cudaError_t err) {
   return static_cast<int>(cudaGetLastError());
 }
 
+bool bad_map(const int* out_map, int out_limbs, int F) {
+  return out_map != nullptr && out_limbs < F;
+}
+
 }  // namespace
 
+// out_map == nullptr: output plane (row, f) at plane row*F + f of out;
+// else at row*out_limbs + out_map[f] (out_map int [F], values distinct and
+// below out_limbs).
 extern "C" int hetpu_ntt_fwd_lifted(const uint32_t* y, uint32_t* out,
                                     int rows, int Ly, int F, int A, int logn,
                                     const uint32_t* lw, const uint32_t* lws,
                                     const int* dig, const uint32_t* w,
                                     const uint32_t* ws, const uint32_t* q,
-                                    const uint32_t* c1, cudaStream_t stream) {
+                                    const uint32_t* c1, const int* out_map,
+                                    int out_limbs, cudaStream_t stream) {
+  if (bad_map(out_map, out_limbs, F))
+    return static_cast<int>(cudaErrorInvalidValue);
   const unsigned planes = static_cast<unsigned>(rows) * F;
   return launched(with_cluster(logn, [&](auto cluster) {
     constexpr int C = decltype(cluster)::value;
     return launch_planes<C>(lifted_kernel<C>, false, planes, logn, stream, y,
-                            out, Ly, A, F, logn, lw, lws, dig, w, ws, q, c1);
+                            out, Ly, A, F, logn, lw, lws, dig, w, ws, q, c1,
+                            out_map, out_limbs);
   }));
 }
 
@@ -250,15 +271,15 @@ extern "C" int hetpu_ntt_fwd_fbc(const uint32_t* u, uint32_t* out, int rows,
 }
 
 // recip == nullptr: no alpha (pm, pms unused); dig == nullptr: every
-// output plane reads source planes 0..A-1.
+// output plane reads source planes 0..A-1; out_map as hetpu_ntt_fwd_lifted.
 extern "C" int hetpu_ntt_fwd_centered(
     const uint32_t* y, uint32_t* out, int rows, int Ly, int F, int A,
     int logn, const uint32_t* cw, const uint32_t* cws, int wf, int wi,
     const int* dig, const uint32_t* q_src, const float* recip,
     const uint32_t* pm, const uint32_t* pms, const uint32_t* w,
     const uint32_t* ws, const uint32_t* q, const uint32_t* c1,
-    cudaStream_t stream) {
-  if (A < 1 || F < 1 || Ly < 1 ||
+    const int* out_map, int out_limbs, cudaStream_t stream) {
+  if (A < 1 || F < 1 || Ly < 1 || bad_map(out_map, out_limbs, F) ||
       (recip != nullptr && (pm == nullptr || pms == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const unsigned planes = static_cast<unsigned>(rows) * F;
@@ -267,9 +288,11 @@ extern "C" int hetpu_ntt_fwd_centered(
     if (recip != nullptr)
       return launch_planes<C>(centered_kernel<C, true>, false, planes, logn,
                               stream, y, out, Ly, A, F, logn, cw, cws, wf, wi,
-                              dig, q_src, recip, pm, pms, w, ws, q, c1);
+                              dig, q_src, recip, pm, pms, w, ws, q, c1,
+                              out_map, out_limbs);
     return launch_planes<C>(centered_kernel<C, false>, false, planes, logn,
                             stream, y, out, Ly, A, F, logn, cw, cws, wf, wi,
-                            dig, q_src, recip, pm, pms, w, ws, q, c1);
+                            dig, q_src, recip, pm, pms, w, ws, q, c1,
+                            out_map, out_limbs);
   }));
 }

@@ -1,5 +1,6 @@
 // Kernel `ks_tail`: the elementwise tails of the key switch's mod-down and
-// of the rescale, one template with four entry points.  Rows are the
+// of the rescale, and the own-prime limbs of its digits, one template with
+// five entry points.  Rows are the
 // leading axes of an output [rows, Lo, N]; output row `row` is part
 // row % P of batch row row / P, and each operand names where that row and
 // limb l sit in its own [batch, parts, limbs, N] array (`Planes`), so the
@@ -16,6 +17,9 @@
 //   lift_last out[l] = ((last + half) mod q_src mod q_l - half mod q_l)
 //             mod q_l, `_div_round_last`'s one-limb middle: the rounded
 //             last limb on every remaining prime, before the forward NTT
+//   own_limbs out[map[l]] = d[l]*w mod q_l: the decompose's limbs on each
+//             digit's own primes (w = R^-1), stored where they lie in the
+//             digits [J, R] of a row, beside the lifted ones K2 stores
 //
 // Replaces what XLA fuses under the JAX package's `jax.jit`
 // (hetpu/core/evaluator.py:48-59): the tails of `_relin_rescale_fused`
@@ -32,8 +36,8 @@
 // int64 for the CPU tests.
 //
 // Bound on the card: device-memory bytes (tail_out reads 3 planes and
-// writes 1; sub_mul 2 and 1; tail_src at most 2 and 1; lift_last reads
-// one limb and writes Lo), with 2-3 integer multiplies a Shoup product far
+// writes 1; sub_mul 2 and 1; tail_src at most 2 and 1; own_limbs 1 and 1;
+// lift_last reads one limb and writes Lo), with 2-3 integer multiplies a Shoup product far
 // below it.  A thread owns one 16-byte quad of one limb of one row (as
 // K7), its per-limb constants loaded once.
 #include "ntt_common.cuh"
@@ -42,7 +46,7 @@ namespace {
 
 constexpr int kTailThreads = 256;   // quads a block
 
-enum Mode { kSrc = 0, kOut = 1, kSubMul = 2, kLiftLast = 3 };
+enum Mode { kSrc = 0, kOut = 1, kSubMul = 2, kLiftLast = 3, kOwn = 4 };
 
 // One operand: rows of `parts` parts of `limbs` limbs, from limb `off`.
 struct Planes {
@@ -62,6 +66,8 @@ struct Consts {
   const uint32_t* q_src;     // [1] the dropped prime (lift_last)
   const uint32_t* mu;        // [Lo] floor(2^32 / q_l) (lift_last)
   const uint32_t* half_mod;  // [Lo] half mod q_l (lift_last)
+  const int* map;            // [Lo] output limb within a row (own_limbs)
+  int limbs;                 // output limbs a row (own_limbs)
 };
 
 __device__ __forceinline__ uint4 load(const Planes& a, size_t row, int P,
@@ -90,6 +96,7 @@ __device__ __forceinline__ uint32_t tail(uint32_t a, uint32_t c, uint32_t r,
     const uint32_t s = mod_add(a, shoup_mul(c, pm, pms, q), q);
     return shoup_mul(mod_sub(s, r, q), w, ws, q);
   }
+  if (MODE == kOwn) return shoup_mul(a, w, ws, q);
   return shoup_mul(mod_sub(a, r, q), w, ws, q);   // kSubMul
 }
 
@@ -126,7 +133,7 @@ __global__ void __launch_bounds__(kTailThreads)
       const uint32_t ql = __ldg(k.q + l);
       uint32_t pm = 0, pms = 0, w = 0, ws = 0;
       uint4 cv = make_uint4(0, 0, 0, 0), rv = cv;
-      if (MODE != kSubMul) {
+      if (MODE == kSrc || MODE == kOut) {
         pm = __ldg(k.p_mod + l);
         pms = __ldg(k.p_mod_shoup + l);
         cv = load(c, row, P, l, n4, quad);
@@ -134,15 +141,20 @@ __global__ void __launch_bounds__(kTailThreads)
       if (MODE != kSrc) {
         w = __ldg(k.w + l);
         ws = __ldg(k.w_shoup + l);
-        rv = load(r, row, P, l, n4, quad);
       }
+      if (MODE == kOut || MODE == kSubMul) rv = load(r, row, P, l, n4, quad);
       v.x = tail<MODE>(av.x, cv.x, rv.x, ql, pm, pms, w, ws);
       v.y = tail<MODE>(av.y, cv.y, rv.y, ql, pm, pms, w, ws);
       v.z = tail<MODE>(av.z, cv.z, rv.z, ql, pm, pms, w, ws);
       v.w = tail<MODE>(av.w, cv.w, rv.w, ql, pm, pms, w, ws);
     }
   }
-  out[i] = v;
+  if (MODE == kOwn) {
+    out[(row * k.limbs + __ldg(k.map + l)) * static_cast<size_t>(n4) +
+        quad] = v;
+  } else {
+    out[i] = v;
+  }
 }
 
 template <int MODE>
@@ -180,8 +192,8 @@ extern "C" int hetpu_ks_tail_src(const uint32_t* acc, int acc_parts,
                                  const uint32_t* p_mod,
                                  const uint32_t* p_mod_shoup,
                                  cudaStream_t stream) {
-  const Consts k{q, p_mod, p_mod_shoup, nullptr, nullptr,
-                 nullptr, nullptr, nullptr, nullptr};
+  const Consts k{q, p_mod, p_mod_shoup, nullptr, nullptr, nullptr,
+                 nullptr, nullptr, nullptr, nullptr, 0};
   return launch<kSrc>(planes(acc, acc_parts, acc_limbs, off),
                       planes(c, c_parts, c_limbs, off), Planes{}, out, rows,
                       P, Lo, g, n, k, stream);
@@ -198,8 +210,8 @@ extern "C" int hetpu_ks_tail_out(const uint32_t* acc, int acc_parts,
                                  const uint32_t* p_mod_shoup,
                                  const uint32_t* w, const uint32_t* w_shoup,
                                  cudaStream_t stream) {
-  const Consts k{q, p_mod, p_mod_shoup, w, w_shoup,
-                 nullptr, nullptr, nullptr, nullptr};
+  const Consts k{q, p_mod, p_mod_shoup, w, w_shoup, nullptr,
+                 nullptr, nullptr, nullptr, nullptr, 0};
   return launch<kOut>(planes(acc, acc_parts, acc_limbs, 0),
                       planes(c, c_parts, c_limbs, 0), planes(r, P, Lo, 0),
                       out, rows, P, Lo, 0, n, k, stream);
@@ -212,8 +224,8 @@ extern "C" int hetpu_ks_tail_sub_mul(const uint32_t* x, int x_limbs,
                                      const uint32_t* q, const uint32_t* w,
                                      const uint32_t* w_shoup,
                                      cudaStream_t stream) {
-  const Consts k{q, nullptr, nullptr, w, w_shoup,
-                 nullptr, nullptr, nullptr, nullptr};
+  const Consts k{q, nullptr, nullptr, w, w_shoup, nullptr,
+                 nullptr, nullptr, nullptr, nullptr, 0};
   return launch<kSubMul>(planes(x, 1, x_limbs, 0), Planes{},
                          planes(r, 1, Lo, 0), out, rows, 1, Lo, 0, n, k,
                          stream);
@@ -227,8 +239,24 @@ extern "C" int hetpu_ks_tail_lift_last(const uint32_t* last, uint32_t* out,
                                        const uint32_t* q, const uint32_t* mu,
                                        const uint32_t* half_mod,
                                        cudaStream_t stream) {
-  const Consts k{q, nullptr, nullptr, nullptr, nullptr,
-                 half, q_src, mu, half_mod};
+  const Consts k{q, nullptr, nullptr, nullptr, nullptr, half,
+                 q_src, mu, half_mod, nullptr, 0};
   return launch<kLiftLast>(planes(last, 1, 1, 0), Planes{}, Planes{}, out,
                            rows, 1, Lo, 0, n, k, stream);
+}
+
+// out plane map[l] of each row of out_limbs planes = d[l]*w[l] mod q[l],
+// over d's L limbs (d's rows d_stride planes apart: read in place).
+extern "C" int hetpu_ks_tail_own_limbs(const uint32_t* d, int d_stride,
+                                       uint32_t* out, int rows, int L, int n,
+                                       const int* map, int out_limbs,
+                                       const uint32_t* q, const uint32_t* w,
+                                       const uint32_t* w_shoup,
+                                       cudaStream_t stream) {
+  if (d_stride < L || out_limbs < L)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Consts k{q, nullptr, nullptr, w, w_shoup, nullptr,
+                 nullptr, nullptr, nullptr, map, out_limbs};
+  return launch<kOwn>(planes(d, 1, d_stride, 0), Planes{}, Planes{}, out,
+                      rows, 1, L, 0, n, k, stream);
 }

@@ -27,8 +27,10 @@
 // that a launch of few planes still fills the card (C is fixed by N:
 // the smallest CTAs that keep 64 threads, cluster_ctas).  The epilogue is
 // one Shoup multiply a residue by c1 (* c2) mod q: R (to Montgomery form),
-// N^-1, N^-1 R^-1 (strip Montgomery form) or N^-1 R^-1 * extra.  Measured
-// times are in PERF.md.
+// N^-1, N^-1 R^-1 (strip Montgomery form) or N^-1 R^-1 * extra.  The
+// input's rows lie `in_stride` planes apart (L when it is contiguous), so
+// a part of a ciphertext (ct[..., p, :, :], 3L planes a row) is read where
+// it lies; the output is contiguous.  Measured times are in PERF.md.
 #include "ntt_passes.cuh"
 
 namespace {
@@ -42,10 +44,11 @@ __global__ void __launch_bounds__(kThreads, kMinCtas)
                const uint32_t* __restrict__ tws,
                const uint32_t* __restrict__ q,
                const uint32_t* __restrict__ c1,
-               const uint32_t* __restrict__ c2) {
+               const uint32_t* __restrict__ c2, int in_stride) {
   extern __shared__ uint32_t s[];
   const size_t plane = blockIdx.x / C;
   const int l = static_cast<int>(plane % L);
+  const size_t row = plane / L;
   const uint32_t ql = q[l];
   const size_t toff = static_cast<size_t>(l) * table_size(logn);
   uint32_t c = 0, cs = 0;
@@ -54,7 +57,7 @@ __global__ void __launch_bounds__(kThreads, kMinCtas)
     if (c2 != nullptr) c = hetpu::mul_mod(c, c2[l], ql);
     cs = hetpu::shoup_of(c, ql);
   }
-  const uint32_t* xp = x + (plane << logn);
+  const uint32_t* xp = x + ((row * in_stride + l) << logn);
   uint32_t* op = out + (plane << logn);
   if constexpr (kInverse)
     inv_plane<C>(s, logn, tw + toff, tws + toff, ql, xp, op, c1 != nullptr,
@@ -69,18 +72,19 @@ __global__ void __launch_bounds__(kThreads, kMinCtas)
 extern "C" int hetpu_ntt(const uint32_t* x, uint32_t* out, int rows, int L,
                          int logn, const uint32_t* w, const uint32_t* ws,
                          const uint32_t* q, const uint32_t* c1,
-                         const uint32_t* c2, int inverse,
+                         const uint32_t* c2, int inverse, int in_stride,
                          cudaStream_t stream) {
   using namespace hetpu::passes;
+  if (in_stride < L) return static_cast<int>(cudaErrorInvalidValue);
   const unsigned planes = static_cast<unsigned>(rows) * L;
   const cudaError_t err = with_cluster(logn, [&](auto cluster) {
     constexpr int C = decltype(cluster)::value;
     return inverse ? launch_planes<C>(ntt_kernel<C, true>, true, planes, logn,
                                       stream, x, out, L, logn, w, ws, q, c1,
-                                      c2)
+                                      c2, in_stride)
                    : launch_planes<C>(ntt_kernel<C, false>, false, planes,
                                       logn, stream, x, out, L, logn, w, ws, q,
-                                      c1, c2);
+                                      c1, c2, in_stride);
   });
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

@@ -91,7 +91,8 @@ def _child(root: str) -> dict:
     import torch
 
     from hetpu_torch import probes
-    from hetpu_torch.core import evaluator, fused_ntt, ip_kernel, nt
+    from hetpu_torch.core import (cuda_lib, evaluator, fused_ntt, ip_kernel,
+                                  nt)
     from hetpu_torch.core.modular import from_u32, shoup_companion
     from hetpu_torch.core.context import Context
     from hetpu_torch.core.evaluator import Evaluator
@@ -111,13 +112,17 @@ def _child(root: str) -> dict:
     ctx = Context(preset("bench_n14"))
     ks = ctx.keyswitch_plan(LEVEL)
 
+    # a root whose K1 cannot read a part of a ciphertext where it lies
+    # (no cuda_lib.row_stride) takes the decompose INTT's input copied
+    in_place = hasattr(cuda_lib, "row_stride")
     calls = {}
     for name, (x, t, kw) in smoke.ntt_cases(rng, ctx).items():
+        x = x if in_place else x.contiguous()
         fn, plain = ((ntt_inv, ntt_inv_plain) if name.startswith("ntt_inv")
                      else (ntt_fwd, ntt_fwd_plain))
         calls[name] = (x, lambda fn=fn, x=x, t=t, kw=kw: fn(x, t, **kw),
                        lambda fn=plain, x=x, t=t, kw=kw: fn(x, t, **kw))
-    x = calls["ntt_inv"][0]
+    x = calls["ntt_fwd"][0]
     lift = (ks.lift_w, ks.lift_ws, ks.lift_dig, ks.foreign_cat_tables)
     calls["ntt_fwd_lifted"] = (x, lambda: fused_ntt.ntt_fwd_lifted(x, *lift),
                                lambda: fused_ntt.ntt_fwd_lifted_plain(x, *lift))

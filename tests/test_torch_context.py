@@ -71,12 +71,34 @@ def test_flat_tables_equal(name):
                          ref_build_tables(p.poly_degree, primes), arrays=True)
 
 
+def _digit_rows(plan) -> dict:
+    """The port's own key-switch fields, from hetpu's plan: where each
+    digit limb lies in a row of digits [J, R] (limb j·R + r), the lifted
+    rows (``ext_row``, by ``foreign_idx``) and the own primes
+    (``own_row``, by ``digit_bounds``)."""
+    R = np.asarray(plan.q).shape[0]
+    return {"ext_row": np.concatenate([j * R + np.asarray(f) for j, f in
+                                       enumerate(plan.foreign_idx)]),
+            "own_row": np.concatenate([j * R + np.arange(lo, hi) for
+                                       j, (lo, hi) in
+                                       enumerate(plan.digit_bounds)])}
+
+
 def _assert_plan_equal(got, want, path=""):
     """Field-by-field: tensors vs numpy arrays, tables by primes (and by
-    array where the reference's tables are flat too), plans recursively."""
+    array where the reference's tables are flat too), plans recursively;
+    the port's digit rows against :func:`_digit_rows`."""
     for f in dataclasses.fields(got):
-        g, w = getattr(got, f.name), getattr(want, f.name)
         where = f"{path}{f.name}"
+        if f.name in ("ext_row", "own_row"):
+            g = getattr(got, f.name)
+            assert g.rows.dtype == torch.int32, where
+            assert g.limbs == got.num_digits * len(got.basis_tables.primes)
+            np.testing.assert_array_equal(g.rows.numpy(),
+                                          _digit_rows(want)[f.name],
+                                          err_msg=where)
+            continue
+        g, w = getattr(got, f.name), getattr(want, f.name)
         if isinstance(g, NttTables):
             _assert_tables_equal(g, w, arrays=not hasattr(w, "sub1"))
         elif isinstance(g, torch.Tensor):

@@ -11,6 +11,7 @@ Imports neither JAX nor hetpu, so it also runs on a GPU host without JAX:
 import dataclasses
 import json
 import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -23,7 +24,8 @@ from hetpu_torch.core import (centered_fbc, cuda_lib, fused_ntt, ip_kernel,
 from hetpu_torch.core.bfv import BfvScheme
 from hetpu_torch.core.context import Context
 from hetpu_torch.core.evaluator import Evaluator
-from hetpu_torch.core.modular import from_u32, shoup_companion, to_u32
+from hetpu_torch.core.modular import (from_u32, shoup_companion, shoup_mul,
+                                      to_u32)
 from hetpu_torch.core.nt import gen_primes
 from hetpu_torch.core.ntt import (build_tables, ntt_fwd, ntt_fwd_plain,
                                   ntt_inv, ntt_inv_plain)
@@ -472,6 +474,153 @@ def test_k7_k8_ops_card_equal_cpu(dev, group):
         assert torch.equal(got.data.cpu(), want.data)
     assert cuda_lib.launches["tensor_product"] == 3, cuda_lib.launches
     assert cuda_lib.launches["ks_tail"] > 0, cuda_lib.launches
+
+
+# ----------------------------------------------------------------------
+# the key-switch digits built in place: K1 on a part of a ciphertext, K2
+# and K6 storing into the digits, K8 own_limbs; the decompose card = CPU,
+# three package launches in its span
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("lead", [(8,), (3, 2), (32,)])
+def test_ntt_inv_on_a_part_in_place(dev, n14, lead):
+    """K1 inverse on ct3[..., 2, :, :] (bench_n14 level 8: rows 27 planes
+    apart) = K1 on its contiguous copy."""
+    ks, t = n14.keyswitch_plan(8), n14.tables(8)
+    ct3 = _res(np.random.default_rng(len(lead) * 10 + lead[0]),
+               (*lead, 3, 9, 1 << 14), t.primes, dev)
+    d = ct3[..., 2, :, :]
+    assert not d.is_contiguous() and cuda_lib.row_stride(d) == 27
+    before = cuda_lib.launches["ntt"]
+    got = ntt_inv(d, t, strip_mont=True, extra=ks.dig_inv)
+    assert cuda_lib.launches["ntt"] == before + 1
+    assert torch.equal(got, ntt_inv(d.contiguous(), t, strip_mont=True,
+                                     extra=ks.dig_inv))
+
+
+@pytest.mark.parametrize("rows", [1, 8, 16])
+@pytest.mark.parametrize("level", [5, 4])
+@pytest.mark.parametrize("logn", range(10, 16))
+def test_lifted_kernel_into_digits_every_cluster(dev, logn, level, rows):
+    """K2 (and K6's lift) storing through ext_row into the digits [rows,
+    J, R, N] at every cluster size, full and short last digits: = the
+    twin's index_copy_, the own-prime limbs left as they were."""
+    ctx = _small_ctx(dev, logn)
+    ks = ctx.keyswitch_plan(level)
+    n = 1 << logn
+    J, R = ks.num_digits, len(ks.basis_tables.primes)
+    y = _res(np.random.default_rng(logn * rows + level + 7),
+             (rows, level + 1, n), ctx.params.moduli[: level + 1], dev)
+    for name, args in (
+            ("ntt_fwd_lifted", (y, ks.lift_w, ks.lift_ws, ks.lift_dig,
+                                ks.foreign_cat_tables)),
+            ("ntt_fwd_centered", (y, ks.lift_w, ks.lift_ws, ks.lift_dig,
+                                  ks.q[: level + 1], ks.foreign_cat_tables))):
+        fn = (fused_ntt.ntt_fwd_lifted if name == "ntt_fwd_lifted"
+              else fused_ntt.ntt_fwd_centered_lift)
+        twin = (fused_ntt.ntt_fwd_lifted_plain if name == "ntt_fwd_lifted"
+                else fused_ntt.ntt_fwd_centered_lift_plain)
+        got = torch.full((rows, J * R, n), -1, dtype=torch.int32, device=dev)
+        want = got.clone()
+        before = cuda_lib.launches[name]
+        assert fn(*args, out=got, out_rows=ks.ext_row) is got
+        assert cuda_lib.launches[name] == before + 1
+        twin(*args, out=want, out_rows=ks.ext_row)
+        assert torch.equal(got, want), name
+        assert (got[:, ks.own_row.rows.long()] == -1).all(), name
+
+
+@pytest.mark.parametrize("shape", ["n14_b8", "n14_b3x2", "deep_hi_b2"])
+def test_own_limbs_kernel(dev, n14, deep_hi, shape):
+    """K8 own_limbs on ct3[..., 2, :, :] (edge residues) into the digits
+    = the twin = shoup_mul at own_row; the lifted limbs left as they
+    were."""
+    ctx, lead, lvl = {"n14_b8": (n14, (8,), 8), "n14_b3x2": (n14, (3, 2), 8),
+                      "deep_hi_b2": (deep_hi, (2,), 24)}[shape]
+    ks, t = ctx.keyswitch_plan(lvl), ctx.tables(lvl)
+    n = ctx.params.poly_degree
+    J, R = ks.num_digits, len(ks.basis_tables.primes)
+    ct3 = _edged(np.random.default_rng(len(shape)),
+                 (*lead, 3, lvl + 1, n), t.primes, dev)
+    d = ct3[..., 2, :, :]
+    got = torch.full((*lead, J * R, n), -1, dtype=torch.int32, device=dev)
+    want = got.clone()
+    before = cuda_lib.launches["ks_tail"]
+    assert ks_tail.own_limbs(d, got, ks.own_row, ks.rinv, ks.rinv_shoup,
+                             t.q) is got
+    assert cuda_lib.launches["ks_tail"] == before + 1
+    ks_tail.own_limbs_plain(d, want, ks.own_row, ks.rinv, ks.rinv_shoup, t.q)
+    assert torch.equal(got, want)
+    own = ks.own_row.rows.long()
+    assert torch.equal(got[..., own, :],
+                       shoup_mul(d, ks.rinv, ks.rinv_shoup, t.q))
+    assert (got[..., ks.ext_row.rows.long(), :] == -1).all()
+
+
+@pytest.mark.parametrize("case", ["bench_n14_b4", "bench_n14_b4_centered",
+                                  "ckks_deep_hi_b1"])
+def test_decompose_card_equals_cpu(dev, case):
+    """Evaluator._decompose of ct3[..., 2, :, :] on the card (K1, K2 or K6,
+    K8 own_limbs into one [B, J, R, N]) = the CPU port's."""
+    name, rows = ("ckks_deep_hi", 1) if case.startswith("ckks") \
+        else ("bench_n14", 4)
+    centered = case.endswith("centered")
+    params = preset(name)
+    ctx = Context(params, dev)
+    lvl = ctx.num_data - 1
+    ct3 = _res(np.random.default_rng(rows), (rows, 3, lvl + 1,
+                                             params.poly_degree),
+               params.moduli[: lvl + 1], dev)
+    d = ct3[..., 2, :, :]
+    got = Evaluator(ctx, centered_fbc=centered)._decompose(d, lvl)
+    want = Evaluator(Context(params, "cpu"), centered_fbc=centered
+                     )._decompose(d.cpu(), lvl)
+    assert torch.equal(got.cpu(), want)
+
+
+_GLOBAL = re.compile(r"__global__\s+(?:void\s+)?(?:__launch_bounds__\s*"
+                     r"\([^)]*\)\s*)?(?:void\s+)?(\w+)\s*\(")
+
+
+def test_decompose_span_launches_three_package_kernels(dev):
+    """A profiled multiply_relin_rescale (bench_n14, B=4): the device
+    operations launched while ``hetpu/ks.decompose`` is open (a runtime
+    call of the host inside the span, and the device operation that
+    shares its correlation id) are K1, K2 and K8, each a ``__global__`` of
+    csrc/*.cu: no copy, memset, cat, stack or int64 pass."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    package = {m for src in pathlib.Path(cuda_lib.CSRC).glob("*.cu")
+               for m in _GLOBAL.findall(src.read_text())}
+    sess = Session.create("bench_n14", seed=b"\x29" * 32, galois_steps=[],
+                          device=dev)
+    x = np.random.default_rng(5).uniform(-1, 1, (2, 4, sess.slots))
+    a, b = (cts[0].with_(data=torch.stack([c.data for c in cts]))
+            for cts in ([sess.encrypt(v) for v in x[0]],
+                        [sess.encrypt(v) for v in x[1]]))
+    sess.ev.multiply_relin_rescale(a, b, sess.rk)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sess.ev.multiply_relin_rescale(a, b, sess.rk)
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    spans = [e.time_range for e in host if e.name == "hetpu/ks.decompose"]
+    assert len(spans) == 1, [e.name for e in host if "hetpu/" in e.name]
+    start, end = spans[0].start, spans[0].end
+    called = {e.id for e in host if e.name.startswith(("cuda", "cuLaunch"))
+              and start <= e.time_range.start <= end}
+    ops = sorted((e for e in events if e.device_type != DeviceType.CPU
+                  and e.id in called and not e.name.startswith("hetpu/")),
+                 key=lambda e: e.time_range.start)
+    names = [e.name for e in ops]
+    assert len(ops) == 3, names
+    for kernel, name in zip(("ntt_kernel", "lifted_kernel",
+                             "ks_tail_kernel"), names):
+        words = set(re.findall(r"\w+", name))
+        assert kernel in words and words & package, names
 
 
 # ----------------------------------------------------------------------

@@ -3,8 +3,8 @@
   * importing it (every module, and running the slice and the probes on
     CPU tensors) pulls in neither JAX nor hetpu and builds nothing — checked in a fresh
     interpreter with no nvcc reachable;
-  * the card's scripts (``chip_smoke.py``, ``kernel_ab.py``) import
-    neither JAX nor hetpu;
+  * the card's scripts (``chip_smoke.py``, ``kernel_ab.py``,
+    ``op_bits.py``) import neither JAX nor hetpu;
   * CPU tensors take the plain paths: every kernel launch counter stays 0;
   * a tensor on any other device raises instead of falling back;
   * the entry points run on the card unless given ``device="cpu"``, and
@@ -164,7 +164,8 @@ def test_transport_loader_builds_under_build_only(tmp_path):
             [f"build/hetpu_torch/libhetpu_io_{digest}.so"]
 
 
-@pytest.mark.parametrize("script", ["chip_smoke.py", "kernel_ab.py"])
+@pytest.mark.parametrize("script", ["chip_smoke.py", "kernel_ab.py",
+                                    "op_bits.py"])
 def test_card_scripts_import_no_jax(script):
     """The card's scripts import hetpu_torch, never JAX or hetpu (the GPU
     host has no JAX): no import statement of theirs names either."""

@@ -137,11 +137,13 @@ def _planes(*pairs):
 
 # test_tiny at its top level: L = 3 data primes, K = 1 special, α = 1,
 # J = 3 digits over R = L + K = 4 primes, g = 1; B = 2 pairs.  The
-# decompose lifts each digit to its R − 1 foreign primes: F = J·R − L = 9.
+# decompose reads c2 in place, lifts each digit to its R − 1 foreign primes
+# (F = J·R − L = 9) and stores its L own-prime limbs beside them.
 # The tail's divide has Lo = R − L + g = 2 sources and L − g = 2 targets,
 # on 2B part rows.
 TINY_KS = [("ntt", 2 * 3 * 2),                # c2 [B, L] in and out
            ("ntt_fwd_lifted", 2 * (3 + 9)),   # c2's L in, F out
+           ("ks_tail", 2 * (3 + 3)),          # own limbs: c2's L in, L out
            ("inner_product",
             2 * 3 * 4 + 2 * (3 * 2 * 4) + 2 * 2 * 4),  # digits, k + ks, out
            ("ks_tail", 4 * 2 + 4 * 1 + 4 * 2),  # acc's Lo, c's g, out Lo
@@ -171,6 +173,7 @@ CASES = {
     # limbs in, the 8 data limbs out
     "rotate": ("dnum", [("ntt", 2 * 8 * 2),
                         ("ntt_fwd_lifted", 2 * (8 + 25)),
+                        ("ks_tail", 2 * (8 + 8)),
                         ("inner_product", 2 * 3 * 11 + 2 * 3 * 2 * 11
                          + 2 * 2 * 11),
                         ("ntt", 4 * 3 * 2),
