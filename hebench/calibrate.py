@@ -8,14 +8,17 @@ process on the card (each seed with its own keys and inputs).
 The control is the plain math itself, computed in the precision below
 the configuration's and put in the program's place: the same comparison
 that decides ``correct`` judges it (``harness.verdict``), and it has to
-come out not correct.  Prints one line a seed and a summary: ``lower``
-is the largest sound reading, ``upper`` the smallest control reading.
+come out not correct.  Prints one line a seed and a summary of the check
+the scheme's referee names (``CALIBRATED``): ``lower`` is its largest
+sound reading, ``upper`` its smallest control reading; every other check
+is exact and listed where it is not 0.
 The benchmark's own runs never run the control.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import sys
 import time
@@ -36,31 +39,33 @@ def main(argv=None) -> int:
         print("hebench: no CUDA card", file=sys.stderr)
         return 3
     cell = harness.find_cell(a.workload)
-    rows = []
+    name = importlib.import_module(
+        f"hebench.reference.{cell.config['scheme']}").CALIBRATED
+    rows, exact = [], set()
     for seed in a.seeds:
         out = harness.run_cell(cell, seed, a.seconds, False, "cuda",
                                time.perf_counter(), control=True,
                                log=lambda s: print(s, file=sys.stderr))
         row = {"seed": seed, "correct": out["correct"],
-               "control": out["control"]["max_abs_err"],
+               "control": out["control"][name],
                "control_correct": out["control"]["correct"],
                **{k: v["value"] for k, v in out["checks"].items()},
                "metrics": {k: v["value"] for k, v in out["metrics"].items()
                            if k != "setup_s"}}
         print(json.dumps(row), flush=True)
         rows.append(row)
+        exact |= set(out["checks"]) - {name}
     summary = {"workload": a.workload,
                "card": torch.cuda.get_device_name(0),
-               "lower": max(r["max_abs_err"] for r in rows),
+               "lower": max(r[name] for r in rows),
                "upper": min(r["control"] for r in rows),
-               "limit": cell.limits["max_abs_err"],
+               "limit": cell.limits.get(name, 0),
                "program_not_correct": [r["seed"] for r in rows
                                        if not r["correct"]],
                "control_correct": [r["seed"] for r in rows
                                    if r["control_correct"]],
                "exact_checks_nonzero": [r["seed"] for r in rows if any(
-                   v for k, v in r.items()
-                   if k in ("limb_mismatch", "fold_mismatch"))],
+                   v for k, v in r.items() if k in exact)],
                "rows": rows}
     print(json.dumps({k: v for k, v in summary.items() if k != "rows"}))
     if a.out:

@@ -14,12 +14,13 @@ WORD = 4                       # bytes a residue
 
 
 def mul_call_bytes(config: dict, batch: int) -> int:
-    """multiply + relinearize + rescale of ``batch`` ciphertext pairs at
-    the top level: 2 inputs of L limbs, one output of L − g limbs (g the
-    primes a rescale drops), and the key of J digits over L + K limbs."""
+    """multiply + relinearize (+ rescale, in CKKS) of ``batch`` ciphertext
+    pairs at the top level: 2 inputs of L limbs, one output of L − g limbs
+    (g the primes the op drops: a CKKS rescale's group, none in BFV), and
+    the key of J digits over L + K limbs."""
     n = config["poly_degree"]
     L, K = len(config["moduli"]), len(config["special_moduli"])
-    g = config["rescale_group"]
+    g = config["rescale_group"] if config["scheme"] == "ckks" else 0
     J = -(-L // K)
     op = (2 * 2 * L + 2 * (L - g)) * n * WORD
     key = J * 2 * (L + K) * n * WORD

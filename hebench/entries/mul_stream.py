@@ -20,15 +20,17 @@ def galois_steps(p: dict) -> list:
 
 
 class Driver:
+    """The stream; a subclass of another scheme's op gives its own
+    ``draw``, ``op`` and ``plain``."""
+
     def __init__(self, sess, p: dict, inputs):
         self.ev, self.rk = sess.ev, sess.rk
         self.slots = sess.slots
         self.units = p["batch"]
-        lo, hi = p["value_range"]
         self.pool = []
         for _ in range(p["pool"]):
-            x = inputs.rng.uniform(lo, hi, (p["batch"], sess.slots))
-            y = inputs.rng.uniform(lo, hi, (p["batch"], sess.slots))
+            x = self.draw(inputs.rng, p)
+            y = self.draw(inputs.rng, p)
             self.pool.append((x, y, inputs.encrypt(sess, x),
                               inputs.encrypt(sess, y)))
         self.keep = set(inputs.sample(p["pool"], p["keep_within"]))
@@ -38,9 +40,21 @@ class Driver:
         self.counts = [0] * p["pool"]
         self.acc = None
 
+    def draw(self, rng, p: dict):
+        """One batch of slot values."""
+        lo, hi = p["value_range"]
+        return rng.uniform(lo, hi, (p["batch"], self.slots))
+
+    def op(self, a, b):
+        return self.ev.multiply_relin_rescale(a, b, self.rk)
+
+    def plain(self, x, y) -> dict:
+        """The inputs of the plain math of one answer."""
+        return {"x": x, "y": y}
+
     def warm(self) -> None:
         _, _, a, b = self.pool[0]
-        out = self.ev.multiply_relin_rescale(a, b, self.rk)
+        out = self.op(a, b)
         self.acc = torch.zeros(out.data[..., : self.fold].shape,
                                dtype=torch.int64, device=out.data.device)
 
@@ -48,7 +62,7 @@ class Driver:
         b = i % len(self.pool)
         _, _, ca, cb = self.pool[b]
         with span("evaluate"):
-            out = self.ev.multiply_relin_rescale(ca, cb, self.rk)
+            out = self.op(ca, cb)
         with span("fold"):
             self.acc.add_(out.data[..., : self.fold])
         self.counts[b] += 1
@@ -65,7 +79,7 @@ class Driver:
             out = outs[i]
             res.append(Answer(data=out.data.cpu(),
                               scales=[out.scale] * out.data.shape[0],
-                              inputs={"x": x, "y": y}, slots=self.slots))
+                              inputs=self.plain(x, y), slots=self.slots))
         return res
 
     def checks(self) -> dict:

@@ -6,7 +6,8 @@ Everything a cell needs is found by name: its entry in ``BENCHMARK.json``
 ``entries/<entry>.py`` and the plain math ``reference/<entry>.py``), its
 own ``workloads/<cell>.json`` (parameters, limits, why), the comparison
 of its configuration's scheme ``reference/<scheme>.py`` and one reader
-``metrics/<metric>.py`` a metric.
+``metrics/<metric>.py`` a metric.  The scheme also picks the program's
+session class (:data:`SESSIONS`).
 """
 
 from __future__ import annotations
@@ -28,6 +29,9 @@ from . import trace as tr
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "hetpu")
+# a configuration's ``scheme`` → the program's session (module, class)
+SESSIONS = {"ckks": ("hetpu_torch.session", "Session"),
+            "bfv": ("hetpu_torch.bfv", "BfvSession")}
 
 
 def _json(path: Path) -> dict:
@@ -67,6 +71,16 @@ def find_cell(name: str, root: Path = ROOT) -> Cell:
                 end_to_end=[m["name"] for m in e2e],
                 per_layer=[m["name"] for m in per], chips=w["chips"],
                 units={m["name"]: m["unit"] for m in e2e + per})
+
+
+def session_class(scheme: str):
+    """The program's session class for ``scheme``; an unknown scheme
+    stops the run."""
+    if scheme not in SESSIONS:
+        raise SystemExit(f"unknown scheme {scheme!r}: the benchmark knows "
+                         f"{', '.join(SESSIONS)}")
+    mod, name = SESSIONS[scheme]
+    return getattr(importlib.import_module(mod), name)
 
 
 def reader(metric: str):
@@ -122,7 +136,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     t = time.perf_counter()
     import hetpu_torch
     from hetpu_torch.core import cuda_lib
-    from hetpu_torch.session import Session
+    session = session_class(cell.config["scheme"])
     entry = importlib.import_module(f"hebench.entries.{cell.entry}")
     expected = importlib.import_module(
         f"hebench.reference.{cell.entry}").expected
@@ -137,7 +151,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     parts["library"] = time.perf_counter() - t
     p = cell.params
     t = time.perf_counter()
-    sess = Session.create(cell.config["preset"],
+    sess = session.create(cell.config["preset"],
                           seed=inputs_mod.key_seed(seed),
                           galois_steps=entry.galois_steps(p), device=device)
     sync()
@@ -202,7 +216,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     if on_card:
         torch.cuda.empty_cache()
     key = inputs_mod.key_seed(seed)
-    j = ref.judge(ref.values(answers, key, cell.config["moduli"], device),
+    j = ref.judge(ref.values(answers, key, cell.config, device),
                   answers, expected, device)
     correct, failed, checks, lim = verdict(j, extra, cell.limits)
     judge_s = time.perf_counter() - t
@@ -225,8 +239,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     if tinfo is not None:
         out["breakdown"] = tr.breakdown(tinfo)
     if control:
-        jc = ref.judge(ref.control_values(answers, expected,
-                                          cell.config["precision"], device),
+        jc = ref.judge(ref.control_values(answers, expected, cell.config,
+                                          device),
                        answers, expected, device)
         ok, bad, cchecks, _ = verdict(jc, {}, cell.limits)
         out["control"] = {"correct": ok, "failed": bad, **cchecks}

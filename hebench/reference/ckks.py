@@ -11,7 +11,9 @@ judge them.
 Each scheme's module gives the harness the same three functions, found
 by the configuration's ``scheme``: ``values`` (the program's answers as
 the comparison reads them), ``control_values`` (the control's, in their
-place) and ``judge`` (both against the plain math).
+place) and ``judge`` (both against the plain math); the first two take
+the configuration.  ``CALIBRATED`` names the check whose limit is set
+from the sound readings and the control's (``hebench.calibrate``).
 
 The representation it reads, each piece re-derived here:
 
@@ -32,6 +34,8 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+
+CALIBRATED = "max_abs_err"
 
 _MASK = (1 << 64) - 1
 _GOLDEN = 0x9E3779B97F4A7C15
@@ -200,16 +204,24 @@ def _slot_exps(n: int) -> np.ndarray:
     return out
 
 
+def phase(data: torch.Tensor, key_seed: bytes,
+          primes) -> tuple[torch.Tensor, Basis]:
+    """c0 + c1·s of ciphertexts [k, 2, L, N] (int32, Montgomery evaluation
+    form) over the first L primes, in evaluation form [k, L, N], and the
+    basis of those primes."""
+    L, n = data.shape[-2], data.shape[-1]
+    b = Basis.make(n, tuple(primes)[:L], data.device)
+    q, s = b.t["q"], secret_eval(key_seed, b)
+    c = data.to(torch.int64) % q
+    return (c[:, 0] + c[:, 1] * s % q) % q * b.t["r_inv"] % q, b
+
+
 def decrypt(data: torch.Tensor, scale: torch.Tensor, key_seed: bytes,
             primes) -> tuple[torch.Tensor, torch.Tensor]:
     """Ciphertexts [k, 2, L, N] (int32, Montgomery evaluation form) over
     the first L primes → (complex slots [k, N/2], limbs that disagree
     [k, N])."""
-    L, n = data.shape[-2], data.shape[-1]
-    b = Basis.make(n, tuple(primes)[:L], data.device)
-    q, s = b.t["q"], secret_eval(key_seed, b)
-    c = data.to(torch.int64) % q
-    m = (c[:, 0] + c[:, 1] * s % q) % q * b.t["r_inv"] % q
+    m, b = phase(data, key_seed, primes)
     val, bad = lift(intt(m, b), b.primes)
     return decode(val, scale), bad
 
@@ -227,7 +239,7 @@ class Answer:
     slots: int
 
 
-def values(answers: list, key_seed: bytes, primes, device) -> list:
+def values(answers: list, key_seed: bytes, config: dict, device) -> list:
     """The program's answers as the comparison reads them: per answer its
     compared slots [k, slots] (complex) and the number of coefficients
     whose limbs disagree."""
@@ -235,7 +247,7 @@ def values(answers: list, key_seed: bytes, primes, device) -> list:
     for a in answers:
         data = a.data.to(device)
         scale = torch.tensor(a.scales, dtype=torch.float64, device=device)
-        slots, mism = decrypt(data, scale, key_seed, primes)
+        slots, mism = decrypt(data, scale, key_seed, config["moduli"])
         out.append((slots[:, : a.slots], int(mism.sum())))
     return out
 
@@ -251,12 +263,13 @@ def _int8(x: torch.Tensor) -> torch.Tensor:
     return torch.round(x / s * 127.0) * (s / 127.0)
 
 
-def control_values(answers: list, expected, precision: str,
+def control_values(answers: list, expected, config: dict,
                    device) -> list:
     """The control, put in the program's place: the plain math itself
-    computed one precision below ``precision`` (int8: inputs and result
-    rounded to int8, the products exact), with no limbs to disagree."""
-    low = LOWER[precision]
+    computed one precision below the configuration's ``precision`` (int8:
+    inputs and result rounded to int8, the products exact), with no limbs
+    to disagree."""
+    low = LOWER[config["precision"]]
     out = []
     for a in answers:
         if low == "int8":

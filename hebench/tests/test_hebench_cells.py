@@ -3,12 +3,14 @@ skipped): the reference agrees with the port, the result has the
 contract's keys, the control fails, and each fault that a cell can have,
 planted under the timed path, makes ``correct`` false."""
 
+import importlib
+
 import pytest
 import torch
 
 from hebench.tests import tiny
 
-CELLS = list(tiny.TINY)
+CELLS = tiny.mixes()
 RESULT_KEYS = ["correct", "attempted", "failed", "metrics", "device"]
 
 
@@ -24,7 +26,7 @@ def test_cell_correct_on_cpu(name):
     assert all(set(m) == {"value", "unit"} for m in out["metrics"].values())
 
 
-@pytest.mark.parametrize("name", ["mul_stream", "infer"])
+@pytest.mark.parametrize("name", CELLS)
 def test_traced_result_keys(name):
     out = tiny.run(name, trace=True)
     assert out["correct"]
@@ -42,7 +44,9 @@ def test_control_fails(name):
     assert out["correct"]
     c = out["control"]
     assert c["correct"] is False and c["failed"] > 0
-    assert c["max_abs_err"] > out["checks"]["max_abs_err"]["limit"]
+    k = importlib.import_module(
+        f"hebench.reference.{tiny.cell(name).config['scheme']}").CALIBRATED
+    assert c[k] > out["checks"][k]["limit"]
 
 
 def _unchanged(real):
@@ -76,7 +80,30 @@ def _altered(real):
     return f
 
 
+def _scale_round_off_by_one(real):
+    """BFV's scale-and-round off by one in one coefficient of one limb:
+    the conversion of t·x/Q from the basis B back to Q (the last of the
+    HPS multiply's base conversions) returns one residue plus one."""
+    from hetpu_torch.core.bfv import BfvScheme
+    make, to_q = BfvScheme._make_lvl, set()
+
+    def make_lvl(self, level):
+        d = make(self, level)
+        to_q.add(id(d["fbc_b_to_q"]))
+        return d
+
+    def f(x, plan, *args, **kw):
+        out = real(x, plan, *args, **kw)
+        if id(plan) in to_q:
+            out = out.clone()
+            out.view(-1)[7] += 1
+        return out
+    return f, (BfvScheme, "_make_lvl", make_lvl)
+
+
 def _targets():
+    from hetpu_torch.bfv import BfvSession
+    from hetpu_torch.core import bfv
     from hetpu_torch.core.evaluator import Evaluator
     from hebench.entries import infer
     mul = (Evaluator, "multiply_relin_rescale")
@@ -93,13 +120,26 @@ def _targets():
          lambda r: (lambda sess, ct, d, a: _half_batch(
              lambda ct: r(sess, ct, d, a), (0,))(ct)), "half_batch"),
         ("infer", (infer, "infer_step"), _altered, "altered"),
+        ("bfv_mul_stream", (BfvSession, "multiply_relin"),
+         lambda r: (lambda self, a, b: a), "unchanged"),
+        ("bfv_mul_stream", (bfv.BfvScheme, "multiply"),
+         lambda r: (lambda self, a, b, ev: _half_batch(
+             lambda a, b: r(self, a, b, ev), (0, 1))(a, b)), "half_batch"),
+        ("bfv_mul_stream", (Evaluator, "relinearize"),
+         lambda r: (lambda self, ct, rk: ct), "relinearize_skipped"),
+        ("bfv_mul_stream", (bfv, "fbc_apply"), _scale_round_off_by_one,
+         "scale_round_off_by_one"),
     ]
 
 
-@pytest.mark.parametrize("case", range(6))
+@pytest.mark.parametrize("case", range(10))
 def test_planted_fault_is_caught(case, monkeypatch):
     name, (owner, attr), make, fault = _targets()[case]
-    monkeypatch.setattr(owner, attr, make(getattr(owner, attr)))
+    planted = make(getattr(owner, attr))
+    if isinstance(planted, tuple):       # the fault and a hook it needs
+        planted, (o, a, hook) = planted
+        monkeypatch.setattr(o, a, hook)
+    monkeypatch.setattr(owner, attr, planted)
     out = tiny.run(name)
     assert not out["correct"], (name, fault, out["checks"])
     assert out["failed"] > 0

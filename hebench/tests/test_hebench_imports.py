@@ -23,7 +23,10 @@ def test_harness_loads_no_jax_and_no_jax_package():
     mods = _top_modules(
         "import hebench.run, hebench.harness, hebench.calibrate\n"
         "import hebench.entries.mul_stream, hebench.entries.infer\n"
+        "import hebench.entries.bfv_mul_stream\n"
+        "from hebench.reference import bfv, bfv_mul_stream\n"
         "from hebench import harness\n"
+        "[harness.session_class(s) for s in harness.SESSIONS]\n"
         "[harness.reader(m) for m in ('setup_s', 'mul_op_roofline')]")
     assert "hetpu_torch" in mods
     assert not mods & {"jax", "jaxlib", "flax", "hetpu"}
@@ -32,7 +35,8 @@ def test_harness_loads_no_jax_and_no_jax_package():
 def test_reference_loads_nothing_of_the_program():
     mods = _top_modules(
         "import hebench.reference.ckks, hebench.reference.mul_stream\n"
-        "import hebench.reference.infer")
+        "import hebench.reference.infer, hebench.reference.bfv\n"
+        "import hebench.reference.bfv_mul_stream")
     assert not mods & {"jax", "jaxlib", "flax", "hetpu", "hetpu_torch"}
 
 

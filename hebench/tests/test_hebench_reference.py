@@ -94,6 +94,6 @@ def test_control_fails_at_the_cells_limit(w):
     a = ckks.Answer(data=None, scales=[], slots=shape[1],
                     inputs={"x": rng.uniform(lo, hi, shape),
                             "y": rng.uniform(lo, hi, shape)})
-    j = ref.judge(ref.control_values([a], expected, cfg["precision"], "cpu"),
+    j = ref.judge(ref.control_values([a], expected, cfg, "cpu"),
                   [a], expected, "cpu")
     assert j["checks"]["max_abs_err"] > own["limits"]["max_abs_err"]
