@@ -27,6 +27,10 @@ multiplies stay plain PyTorch (the reference runs them outside any Pallas
 kernel too).  Plain Montgomery products take R⁻¹ (``mont_mul(a, b, q,
 r_inv)``), the kernel −q⁻¹; residues travel to the host through
 ``modular.to_u32``.
+
+While a torch profiler records, the multiply opens its stage spans
+(:func:`..utils.profiling.span`): ``hetpu/bfv.lift``,
+``hetpu/bfv.convert``, ``hetpu/mul.tensor`` and ``hetpu/bfv.scale``.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from .ntt import build_tables, ntt_fwd, ntt_fwd_mont, ntt_inv
 from .params import Scheme
 from .rns import fbc_apply, make_fbc
 from .tensor_product import tensor_product
+from ..utils.profiling import span
 
 
 def _col(xs, dt=np.uint32):
@@ -383,7 +388,10 @@ class BfvScheme:
     def multiply(self, a: Ciphertext, b: Ciphertext,
                  ev: Evaluator) -> Ciphertext:
         """BFV ct·ct → (ka+kb−1)-part ct: tensor over Q_ℓ ∪ B, scale by
-        t/Q_ℓ."""
+        t/Q_ℓ.  Its stages partition it: ``bfv.lift`` (each operand's
+        transforms to B), ``bfv.convert`` (each precise conversion),
+        ``mul.tensor`` (the products over Q_ℓ and B) and ``bfv.scale``
+        (the rest of the scale-and-round)."""
         if a.level != b.level:
             raise ValueError("level mismatch")
         lvl = a.level
@@ -393,34 +401,42 @@ class BfvScheme:
         mc_q = self.ctx.mont(lvl)
         tables_B = plans["tables_B"]
 
+        def convert(x, plan):
+            with span("bfv.convert"):
+                return fbc_apply(x, plan, precise=True)
+
         def to_b(ct):
-            coeffs = ntt_inv(ct.data.contiguous(), tabs_q, strip_mont=True)
-            ext = fbc_apply(coeffs, plans["fbc_q_to_b"], precise=True)
-            return ntt_fwd_mont(ext, tables_B)           # [parts, K, N] Mont
+            with span("bfv.lift"):
+                coeffs = ntt_inv(ct.data.contiguous(), tabs_q,
+                                 strip_mont=True)
+                ext = convert(coeffs, plans["fbc_q_to_b"])
+                return ntt_fwd_mont(ext, tables_B)       # [parts, K, N] Mont
 
         a_b, b_b = to_b(a), to_b(b)
-        prod_q = tensor_product(a.data, b.data, mc_q["q"], mc_q["r_inv"],
-                                mc_q["qinv_neg"])
-        prod_b = tensor_product(a_b, b_b, plans["q_B"], plans["r_inv_B"],
-                                plans["qinv_neg_B"])
+        with span("mul.tensor"):
+            prod_q = tensor_product(a.data, b.data, mc_q["q"],
+                                    mc_q["r_inv"], mc_q["qinv_neg"])
+            prod_b = tensor_product(a_b, b_b, plans["q_B"],
+                                    plans["r_inv_B"], plans["qinv_neg_B"])
 
-        # coefficient domain, standard form, both bases
-        cq = ntt_inv(prod_q, tabs_q, strip_mont=True)
-        cb = ntt_inv(prod_b, tables_B, strip_mont=True)
-
-        # u = t·x over Q ∪ B
-        uq = shoup_mul(cq, plans["t_mod_qb"][:L], plans["t_shoup_qb"][:L],
-                       tabs_q.q)
-        ub = shoup_mul(cb, plans["t_mod_qb"][L:], plans["t_shoup_qb"][L:],
-                       tables_B.q)
-        # r = |u|_Q lifted to B; y = (u − r)/Q over B
-        r_b = fbc_apply(uq, plans["fbc_q_to_b"], precise=True)
-        y_b = shoup_mul(mod_sub(ub, r_b, tables_B.q), plans["qinv_mod_b"],
-                        plans["qinv_shoup_b"], tables_B.q)
-        # back to Q
-        out_q = fbc_apply(y_b, plans["fbc_b_to_q"], precise=True)
-        return Ciphertext(data=ntt_fwd_mont(out_q, tabs_q), level=lvl,
-                          scale=1.0)
+        with span("bfv.scale"):
+            # coefficient domain, standard form, both bases
+            cq = ntt_inv(prod_q, tabs_q, strip_mont=True)
+            cb = ntt_inv(prod_b, tables_B, strip_mont=True)
+            # u = t·x over Q ∪ B
+            uq = shoup_mul(cq, plans["t_mod_qb"][:L],
+                           plans["t_shoup_qb"][:L], tabs_q.q)
+            ub = shoup_mul(cb, plans["t_mod_qb"][L:],
+                           plans["t_shoup_qb"][L:], tables_B.q)
+            # r = |u|_Q lifted to B; y = (u − r)/Q over B
+            r_b = convert(uq, plans["fbc_q_to_b"])
+            y_b = shoup_mul(mod_sub(ub, r_b, tables_B.q),
+                            plans["qinv_mod_b"], plans["qinv_shoup_b"],
+                            tables_B.q)
+            # back to Q
+            out_q = convert(y_b, plans["fbc_b_to_q"])
+            return Ciphertext(data=ntt_fwd_mont(out_q, tabs_q), level=lvl,
+                              scale=1.0)
 
     # ------------------------------------------------------------------
     # modulus switching (SEAL BFV mod_switch_to_next)

@@ -31,7 +31,9 @@ tables and per-prime constants do not count.  Bytes are added only while
 a torch profiler records (``utils.profiling.profiler_on``), so the
 traced slice's launches carry them and an untraced launch pays one check;
 a capture records its launches' bytes, and a replay adds them under the
-same check.  :func:`reset_launches` clears both.
+same check.  :func:`reset_launches` clears both, and the bytes of the
+plain precise conversions (``rns.convert_bytes``), counted by the same
+rule.
 """
 
 from __future__ import annotations
@@ -140,9 +142,14 @@ _SIGNATURES = {
 
 
 def reset_launches() -> None:
+    """Clear :data:`launches`, :data:`launch_bytes` and the plain precise
+    conversions' ``rns.convert_bytes``."""
+    from . import rns                  # rns imports this module
     for k in launches:
         launches[k] = 0
         launch_bytes[k] = 0
+    for k in rns.convert_bytes:
+        rns.convert_bytes[k] = 0
 
 
 def plane_bytes(n: int, *planes: int) -> int:

@@ -17,6 +17,12 @@ coefficient by P).  The precise α is different: the reference runs it
 eagerly, outside ``jax.jit`` (``hetpu/core/bfv.py``), so each of its f32
 products and sums rounds on its own, and so does each eager torch op of
 :mod:`.twofloat` here, on either device.
+
+:data:`convert_bytes` counts the device-memory bytes of the precise
+conversions by the rule of :func:`.cuda_lib.plane_bytes` (every source
+limb read once, every target limb written once, as int32 planes), only
+while a torch profiler records, as :data:`.cuda_lib.launch_bytes` counts
+the package's launches; :func:`.cuda_lib.reset_launches` clears it.
 """
 
 from __future__ import annotations
@@ -27,7 +33,12 @@ import numpy as np
 import torch
 
 from . import nt
+from .cuda_lib import plane_bytes
 from .modular import add_i64, from_u32, shoup_mul, shoup_precompute, sub_i64, u32
+from ..utils.profiling import profiler_on
+
+# conversion → bytes of its calls made while a profiler recorded
+convert_bytes = {"fbc_apply": 0}
 
 
 def _col(xs, dt=np.uint32):
@@ -155,7 +166,14 @@ def fbc_apply(x: torch.Tensor, plan: FbcPlan, *, correct: bool = True,
     ``precise=True`` takes α from :func:`_alpha_precise` (two-float, the
     BFV grade) instead of the f32 fma chain; it stays plain PyTorch on
     either device.  Each source term is taken mod every target prime in
-    one op (exact int64 arithmetic, so the order of the terms is free)."""
+    one op (exact int64 arithmetic, so the order of the terms is free).
+    A precise call adds its bytes to :data:`convert_bytes` while a
+    profiler records."""
+    if precise and profiler_on():
+        lp, lr = plan.p.shape[0], plan.r.shape[0]
+        rows = x[..., 0, 0].numel()
+        convert_bytes["fbc_apply"] += plane_bytes(x.shape[-1],
+                                                  rows * (lp + lr))
     y = shoup_mul(x, plan.inv_punit, plan.inv_punit_shoup,
                   plan.p) if premul else x
     r = u32(plan.r)                                     # [Lr, 1]
