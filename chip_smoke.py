@@ -77,7 +77,10 @@ run exits non-zero without a result line):
      and K8 ``ks_tail`` at the bench_n14 level-8 tail (tail_src, tail_out),
      relinearize's mod-down and rescale's divide (sub_mul) and the
      rescale's lift of the last limb (lift_last), each also exact on edge
-     residues (0 and q−1 on every limb of the basis);
+     residues (0 and q−1 on every limb of the basis); and K9
+     ``fbc_precise`` at the bfv_n14.mul_stream.b64 cell's four precise
+     conversions (bfv_batch B=64: Q→B [64,2,7,N] and [64,3,7,N], B→Q
+     [64,3,10,N]) and decrypt's Q→G [64,7,N], also exact on edge residues;
   5. goldens — Session "test_dnum" (seed 0x33) on the card:
      multiply_relin_rescale on golden_pins fused_a/fused_b = fused_out and
      rotate by 1 = fused_rot; golden_n14 rs_n14 through Evaluator.rescale;
@@ -106,8 +109,8 @@ run exits non-zero without a result line):
  11. BFV path — BfvSession.create("bfv_batch", seed 0x35, galois_steps
      [1]): B=8 slot vectors mod t through multiply_relin, rotate_rows(1)
      and mod_switch, each row decrypted exactly (Python ints), noise
-     budget > 0, the B=1 output equal to the CPU plain path, K1–K4, K7
-     and K8 launched; multiply_relin timed (ops/s) and profiled, with the
+     budget > 0, the B=1 output equal to the CPU plain path, K1–K4, K7,
+     K8 and K9 launched; multiply_relin timed (ops/s) and profiled, with the
      precise-α conversions' device time and kernels;
  12. paired-prime path — Session.create("ckks_hi14", seed 0x36) at B=8 in
      both FBC modes: fused multiply_relin_rescale within 2e-9 of x·y (see
@@ -241,7 +244,7 @@ from hetpu_torch.bench import workloads as bench_workloads
 from hetpu_torch.bench.__main__ import main as bench_main
 from hetpu_torch.bfv import BfvSession
 from hetpu_torch.core import (centered_fbc, cuda_lib, fused_ntt, ip_kernel,
-                              ks_tail, nt, serial)
+                              ks_tail, nt, rns, serial)
 from hetpu_torch.core.bfv import BfvScheme
 from hetpu_torch.core.centered_fbc import CenteredFbcPlan
 from hetpu_torch.core.ciphertext import Ciphertext
@@ -884,6 +887,33 @@ def k8_cases(rng) -> dict:
     return out
 
 
+def k9_cases(rng) -> dict:
+    """K9 ``fbc_precise`` at the four precise conversions of the
+    bfv_n14.mul_stream.b64 cell (bfv_batch's top level, B=64): each
+    operand Q→B [64,2,7,N]→10, t·x's Q-residues Q→B [64,3,7,N]→10, the
+    scaled y B→Q [64,3,10,N]→7, and decrypt's Q→G [64,7,N]→2; each timed
+    on uniform residues against the plain twin (bytes bound: the source
+    limbs read once, the target limbs written once), then exact on edge
+    residues."""
+    bctx = Context(preset("bfv_batch"))
+    lvl = BfvScheme(bctx)._lvl(BFV_LEVEL)
+    n = bctx.params.poly_degree
+    cases = {"fbc_precise_q_to_b2": ((64, 2), lvl["fbc_q_to_b"]),
+             "fbc_precise_q_to_b3": ((64, 3), lvl["fbc_q_to_b"]),
+             "fbc_precise_b_to_q3": ((64, 3), lvl["fbc_b_to_q"]),
+             "fbc_precise_q_to_g": ((64,), lvl["fbc_q_to_g"])}
+    out = {}
+    for name, (lead, plan) in cases.items():
+        src = to_u32(plan.p)[:, 0]
+        fn = lambda u: (lambda: rns.fbc_precise(u, plan))
+        plain = lambda u: (lambda: rns.fbc_apply_plain(u, plan, precise=True))
+        u = residues(rng, (*lead, len(src), n), src)
+        out[name] = compare(name, fn(u), plain(u), [u])
+        u = edge_residues(rng, (*lead, len(src), n), src)
+        exact(f"{name} edges", fn(u), plain(u))
+    return out
+
+
 def phase_kernels(rng) -> dict:
     ctx = Context(preset("bench_n14"))
     n = ctx.params.poly_degree
@@ -938,6 +968,7 @@ def phase_kernels(rng) -> dict:
     out.update(app_kernel_cases(rng))
     out.update(k7_cases(rng))
     out.update(k8_cases(rng))
+    out.update(k9_cases(rng))
     for name, r in out.items():
         log("kernel_vs_plain", kernel=name, **r)
     return out
@@ -1335,7 +1366,7 @@ def phase_bfv(rng, smi: str):
     budget = sess.noise_budget(out.with_(data=out.data[0]))
     if not budget > 0:
         raise AssertionError(f"bfv: noise budget {budget}")
-    _need(mr_launches, PATH_KERNELS, "bfv multiply_relin",
+    _need(mr_launches, PATH_KERNELS + ("fbc_precise",), "bfv multiply_relin",
           absent=("ntt_fwd_centered", "centered_fbc"))
     # B=1: the card's output equals the plain path on the CPU (same keys)
     a1 = a.with_(data=a.data[0].contiguous())
@@ -2968,9 +2999,15 @@ KERNELS = [
     ("ks_tail", "hetpu_torch/csrc/ks_tail.cu", "hetpu/core/evaluator.py:410",
      ("ks_tail_out", "ks_tail_src", "ks_tail_sub_mul_moddown",
       "ks_tail_sub_mul_rescale", "ks_tail_lift_last"), "default"),
+    # hetpu's eager jnp conversion of BFV's multiply and decrypt (no
+    # pl.pallas_call): fbc_apply with the two-float α (:79)
+    ("fbc_precise", "hetpu_torch/csrc/fbc_precise.cu", "hetpu/core/rns.py:103",
+     ("fbc_precise_q_to_b2", "fbc_precise_q_to_b3", "fbc_precise_b_to_q3",
+      "fbc_precise_q_to_g"), "bfv_multiply_relin"),
 ]
 # the other sites each row stands for (hetpu's fused jnp code)
 ALSO_REPLACES = {"tensor_product": ["hetpu/core/evaluator.py:150"],
+                 "fbc_precise": ["hetpu/core/rns.py:79"],
                  "ks_tail": ["hetpu/core/evaluator.py:455",
                              "hetpu/core/evaluator.py:482"]}
 

@@ -21,10 +21,11 @@ matmul, batch_matmul_bfv, matpow) and its ``invariant_noise_budget``.
 On the card the transforms run in the ``ntt`` kernel (K1) over the data,
 auxiliary and t-factor bases, the tensor products over both in
 ``tensor_product`` (K7), mod_switch's divide and relinearize's mod-down
-tail in ``ks_tail`` (K8), and relinearize adds K2–K4 (or K6 with
-``centered_fbc``); the precise-α conversions and the HPS scaling's Shoup
-multiplies stay plain PyTorch (the reference runs them outside any Pallas
-kernel too).  Plain Montgomery products take R⁻¹ (``mont_mul(a, b, q,
+tail in ``ks_tail`` (K8), the precise-α conversions (the multiply's four,
+decrypt's Q → G) in ``fbc_precise`` (K9, through ``rns.fbc_apply``), and
+relinearize adds K2–K4 (or K6 with ``centered_fbc``); the HPS scaling's
+Shoup multiplies and subtract stay plain PyTorch (the reference runs all
+of these outside any Pallas kernel).  Plain Montgomery products take R⁻¹ (``mont_mul(a, b, q,
 r_inv)``), the kernel −q⁻¹; residues travel to the host through
 ``modular.to_u32``.
 

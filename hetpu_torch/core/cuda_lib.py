@@ -9,7 +9,7 @@ repository root; the library's file name carries a hash of the sources
 and flags, so an edited source rebuilds.
 
 Each kernel wrapper (``ntt.py``, ``fused_ntt.py``, ``ip_kernel.py``,
-``centered_fbc.py``, ``tensor_product.py``, ``ks_tail.py``,
+``centered_fbc.py``, ``tensor_product.py``, ``ks_tail.py``, ``rns.py``,
 ``parallel/peer.py``, and the probes' ``copy.py``,
 ``overhead2.py``, ``dot.py`` and ``kernel_parts.py``) checks its tensors,
 allocates outputs with ``torch.empty`` (``peer.py`` stores into exchange
@@ -32,8 +32,8 @@ a torch profiler records (``utils.profiling.profiler_on``), so the
 traced slice's launches carry them and an untraced launch pays one check;
 a capture records its launches' bytes, and a replay adds them under the
 same check.  :func:`reset_launches` clears both, and the bytes of the
-plain precise conversions (``rns.convert_bytes``), counted by the same
-rule.
+precise conversions (``rns.convert_bytes``), counted by the same rule on
+either route.
 """
 
 from __future__ import annotations
@@ -62,7 +62,7 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # kernel name → launches made by its wrapper (one per kernel launch)
 launches = {"ntt": 0, "ntt_fwd_lifted": 0, "ntt_fwd_fbc": 0,
             "ntt_fwd_centered": 0, "inner_product": 0, "centered_fbc": 0,
-            "tensor_product": 0, "ks_tail": 0,
+            "tensor_product": 0, "ks_tail": 0, "fbc_precise": 0,
             "copy_planes": 0, "muladd_u32": 0, "dot_i8": 0,
             "plane_parts": 0, "peer_permute": 0}
 # kernel name → device-memory bytes of its launches made while a profiler
@@ -114,6 +114,8 @@ _SIGNATURES = {
                                 _P),
     # y, out, rows, S, F, n, consts, has_alpha, has_extra, stream
     "hetpu_centered_fbc": (_P, _P, _I, _I, _I, _I, _P, _I, _I, _P),
+    # x, out, rows, S, F, n, consts, stream
+    "hetpu_fbc_precise": (_P, _P, _I, _I, _I, _I, _P, _P),
     # x, out, R, L, e4, rb, lb, stream
     "hetpu_copy_planes": (_P, _P, _I, _I, _I, _I, _I, _P),
     # x, out, n4, stream
@@ -142,7 +144,7 @@ _SIGNATURES = {
 
 
 def reset_launches() -> None:
-    """Clear :data:`launches`, :data:`launch_bytes` and the plain precise
+    """Clear :data:`launches`, :data:`launch_bytes` and the precise
     conversions' ``rns.convert_bytes``."""
     from . import rns                  # rns imports this module
     for k in launches:

@@ -5,6 +5,11 @@ Counterpart of ``hetpu/core/rns.py`` (``FbcPlan``, ``make_fbc``,
 CENTERED values between bases with a float32 α-correction (a misround
 shifts by ±P — absorbed as bounded noise at every use site), or with
 ``precise=True`` with the two-float α of BFV (:func:`_alpha_precise`).
+A precise conversion of a CUDA tensor, in BFV's form (with the
+premultiply and the α-correction), launches kernel ``fbc_precise`` (K9,
+``csrc/fbc_precise.cu``, :func:`fbc_precise`) on the constants that each
+``FbcPlan`` packs from its fields into ``kernel_consts``; a CPU tensor
+takes the plain PyTorch :func:`fbc_apply_plain`.
 
 Bit-exactness with the reference hinges on α = round(Σ_i f32(y_i)·f32(1/p_i)).
 The reference computes it as ``jnp.sum(y.astype(f32) * recip, axis=-2)``
@@ -16,29 +21,32 @@ separately would flip α on rare near-half columns and shift the
 coefficient by P).  The precise α is different: the reference runs it
 eagerly, outside ``jax.jit`` (``hetpu/core/bfv.py``), so each of its f32
 products and sums rounds on its own, and so does each eager torch op of
-:mod:`.twofloat` here, on either device.
+:mod:`.twofloat` here, and each spelled-out float32 op of K9.
 
 :data:`convert_bytes` counts the device-memory bytes of the precise
 conversions by the rule of :func:`.cuda_lib.plane_bytes` (every source
 limb read once, every target limb written once, as int32 planes), only
-while a torch profiler records, as :data:`.cuda_lib.launch_bytes` counts
-the package's launches; :func:`.cuda_lib.reset_launches` clears it.
+while a torch profiler records, on either route (K9's launches count the
+same bytes under ``launch_bytes["fbc_precise"]`` too);
+:func:`.cuda_lib.reset_launches` clears it.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
-from . import nt
+from . import cuda_lib, nt
 from .cuda_lib import plane_bytes
-from .modular import add_i64, from_u32, shoup_mul, shoup_precompute, sub_i64, u32
+from .modular import (add_i64, from_u32, shoup_mul, shoup_precompute,
+                      sub_i64, to_u32, u32)
 from ..utils.profiling import profiler_on
 
 # conversion → bytes of its calls made while a profiler recorded
 convert_bytes = {"fbc_apply": 0}
+MAX_SRC, MAX_DST = 16, 16      # K9's largest plan (csrc/fbc_precise.cu)
 
 
 def _col(xs, dt=np.uint32):
@@ -63,6 +71,14 @@ class FbcPlan:
     ptot_mod_r: torch.Tensor      # P mod r_j                [Lr, 1]
     ptot_shoup: torch.Tensor
     r: torch.Tensor               # target primes            [Lr, 1]
+    # K9's constants packed from the fields above (:func:`pack_consts`);
+    # derived, so ``dataclasses.replace`` packs them anew
+    kernel_consts: torch.Tensor = field(init=False, repr=False,
+                                        compare=False)
+
+    def __post_init__(self):
+        object.__setattr__(self, "kernel_consts",
+                           from_u32(pack_consts(self), self.r.device))
 
 
 def _two_float(x: np.ndarray):
@@ -100,6 +116,39 @@ def make_fbc(src_primes, dst_primes, device="cuda") -> FbcPlan:
         ptot_shoup=t(shoup_precompute(ptot, rcol)),
         r=t(rcol),
     )
+
+
+def fbc_chunk(src_primes, dst_primes) -> int:
+    """Terms K9 adds into its unsigned 64-bit sum between two reductions:
+    the most that cannot overflow after a reduced value (< r), each term
+    y_i·(P/p_i mod r) ≤ (p − 1)(r − 1), or α·(r − P mod r) ≤ Lp·r (α ≤
+    Lp, as every y_i/p_i < 1)."""
+    p, r = max(map(int, src_primes)), max(map(int, dst_primes))
+    term = max((p - 1) * (r - 1), len(src_primes) * r)
+    return min(((1 << 64) - r) // term, 64)
+
+
+def pack_consts(plan: FbcPlan) -> np.ndarray:
+    """K9 ``fbc_precise``'s constants as uint32 words, read from the
+    plan's fields, in the order it stages them: (P/p_i) mod r_f at i·F +
+    f; per target r_f, ⌊2^32/r_f⌋ (the Shoup companion of 1), 2^32 mod
+    r_f and its companion, P mod r_f; per source p_i, (P/p_i)⁻¹ mod p_i
+    and its companion, the float32 bits of 2^16/p_i's and 1/p_i's
+    two-float splits (hi, lo, hi, lo); last :func:`fbc_chunk`."""
+    w = lambda t: to_u32(t).astype(np.uint64)
+    r, pcol = w(plan.r), w(plan.p)
+    r32 = (np.uint64(1) << np.uint64(32)) % r
+    per_f = [r, shoup_precompute(np.ones_like(r), r), r32,
+             shoup_precompute(r32, r), w(plan.ptot_mod_r)]
+    per_s = [pcol, w(plan.inv_punit), w(plan.inv_punit_shoup)] + [
+        w(f.view(torch.int32)) for f in (plan.r16_hi, plan.r16_lo,
+                                         plan.r0_hi, plan.r0_lo)]
+    chunk = fbc_chunk(pcol[:, 0], r[:, 0])
+    words = [w(plan.phat_mod_r).reshape(-1),
+             np.concatenate(per_f, axis=1).reshape(-1),
+             np.concatenate(per_s, axis=1).reshape(-1), [chunk]]
+    return np.concatenate([np.asarray(a, dtype=np.uint64) for a in words]
+                          ).astype(np.uint32)
 
 
 def fma_f32(a: torch.Tensor, b: torch.Tensor,
@@ -164,16 +213,33 @@ def fbc_apply(x: torch.Tensor, plan: FbcPlan, *, correct: bool = True,
     α·P); ``correct=False`` returns the plain lift Σ y_i·(P/p_i) mod r.
     ``premul=False`` means x already carries the P̂⁻¹ factors.
     ``precise=True`` takes α from :func:`_alpha_precise` (two-float, the
-    BFV grade) instead of the f32 fma chain; it stays plain PyTorch on
-    either device.  Each source term is taken mod every target prime in
-    one op (exact int64 arithmetic, so the order of the terms is free).
-    A precise call adds its bytes to :data:`convert_bytes` while a
-    profiler records."""
+    BFV grade) instead of the f32 fma chain.  A precise call of a CUDA
+    tensor launches K9 (:func:`fbc_precise`) and takes only BFV's form
+    (``correct`` and ``premul``); every other call takes
+    :func:`fbc_apply_plain`.  A precise call adds its bytes to
+    :data:`convert_bytes` while a profiler records, on either route."""
     if precise and profiler_on():
         lp, lr = plan.p.shape[0], plan.r.shape[0]
         rows = x[..., 0, 0].numel()
         convert_bytes["fbc_apply"] += plane_bytes(x.shape[-1],
                                                   rows * (lp + lr))
+    if precise and cuda_lib.on_card(x, plan.kernel_consts):
+        if not (correct and premul):
+            raise ValueError("fbc_apply: a precise conversion on the card "
+                             "is BFV's form (correct and premul), kernel "
+                             "fbc_precise; fbc_apply_plain takes the others")
+        return fbc_precise(x, plan)
+    return fbc_apply_plain(x, plan, correct=correct, premul=premul,
+                           precise=precise)
+
+
+def fbc_apply_plain(x: torch.Tensor, plan: FbcPlan, *, correct: bool = True,
+                    premul: bool = True,
+                    precise: bool = False) -> torch.Tensor:
+    """:func:`fbc_apply` in plain PyTorch on either device (K9's twin in
+    the precise form).  Each source term is taken mod every target prime
+    in one op (exact int64 arithmetic, so the order of the terms is
+    free)."""
     y = shoup_mul(x, plan.inv_punit, plan.inv_punit_shoup,
                   plan.p) if premul else x
     r = u32(plan.r)                                     # [Lr, 1]
@@ -187,3 +253,39 @@ def fbc_apply(x: torch.Tensor, plan: FbcPlan, *, correct: bool = True,
                  else alpha_f32(y, plan.p_recip))
         acc = sub_i64(acc, alpha * u32(plan.ptot_mod_r) % r, r)
     return acc.to(torch.int32)
+
+
+def fbc_precise(x: torch.Tensor, plan: FbcPlan) -> torch.Tensor:
+    """``fbc_apply(x, plan, correct=True, premul=True, precise=True)`` on
+    the card: kernel ``fbc_precise`` (K9), one pass over x [..., Lp, N]
+    (int32, contiguous, 16-byte aligned, N a multiple of 4) into a new
+    [..., Lr, N]; the bits of the plain body."""
+    cuda_lib.check_i32("fbc_precise", x)
+    if x.device.type != "cuda":
+        raise ValueError(f"fbc_precise: x on {x.device}; the kernel takes a "
+                         "CUDA tensor (fbc_apply_plain takes the others)")
+    lp, lr = plan.p.shape[0], plan.r.shape[0]
+    if x.dim() < 2 or x.shape[-2] != lp:
+        raise ValueError(f"fbc_precise: shape {tuple(x.shape)} is not "
+                         f"[..., {lp}, N]")
+    if lp > MAX_SRC or lr > MAX_DST:
+        raise ValueError(f"fbc_precise: {lp} → {lr} primes; the kernel takes "
+                         f"at most {MAX_SRC} → {MAX_DST}")
+    if x.device != plan.kernel_consts.device:
+        raise ValueError(f"fbc_precise: x on {x.device}, the plan on "
+                         f"{plan.kernel_consts.device}")
+    n = x.shape[-1]
+    rows = x.numel() // (lp * n) if n else 0
+    out = torch.empty((*x.shape[:-2], lr, n), dtype=torch.int32,
+                      device=x.device)
+    if rows == 0:
+        return out
+    if n % 4:
+        raise ValueError(f"fbc_precise: N={n} is no multiple of 4 (a thread "
+                         "moves 4 columns)")
+    cuda_lib.check_aligned("fbc_precise", x, out)
+    cuda_lib.launch("fbc_precise", "hetpu_fbc_precise", x.device,
+                    x.data_ptr(), out.data_ptr(), rows, lp, lr, n,
+                    plan.kernel_consts.data_ptr(),
+                    nbytes=plane_bytes(n, rows * lp, rows * lr))
+    return out

@@ -14,7 +14,11 @@ Each line below is one eager torch op on float32 tensors, which rounds
 once on the CPU and on the card alike; do not fuse them (no ``addcmul``,
 no ``torch.compile``), or a contracted multiply-add changes the error
 terms and, on rare near-half columns, α.  The reference calls these
-functions without ``jax.jit``, so its ops round one by one too.
+functions without ``jax.jit``, so its ops round one by one too.  These
+functions are the plain twin's (``rns.fbc_apply_plain``); on the card a
+precise conversion runs kernel ``fbc_precise`` (K9,
+``csrc/fbc_precise.cu``), which spells each of these ops out as its own
+rounded float32 instruction, in the same order.
 """
 
 from __future__ import annotations

@@ -20,7 +20,7 @@ import torch.multiprocessing as mp
 
 from hetpu_torch.bfv import BfvSession
 from hetpu_torch.core import (centered_fbc, cuda_lib, fused_ntt, ip_kernel,
-                              ks_tail, serial)
+                              ks_tail, rns, serial)
 from hetpu_torch.core.bfv import BfvScheme
 from hetpu_torch.core.context import Context
 from hetpu_torch.core.evaluator import Evaluator
@@ -44,6 +44,7 @@ from hetpu_torch.core.tensor_product import (tensor_product,
 from torch_ties import (TIES_DNUM, TIES_DNUM_CENTERED,
                         TIES_N14_TAIL_CENTERED)
 import torch_parallel_ranks as ranks
+import rns_cases
 import torch_demo_cases
 import torch_profile_cases
 
@@ -1059,6 +1060,165 @@ def test_bfv_card_equals_cpu(dev, centered):
         got = s.decrypt(out.with_(data=out.data[i]))
         assert [int(v) for v in got] == want
     assert s.noise_budget(out.with_(data=out.data[0])) > 0
+
+
+# ----------------------------------------------------------------------
+# K9 fbc_precise: BFV's precise conversions against the plain twin
+# ----------------------------------------------------------------------
+
+def _k9_equals_twin(x, plan):
+    """K9 on x = the plain precise conversion on the card (and, for a
+    small x, on the CPU), one launch through fbc_apply."""
+    before = cuda_lib.launches["fbc_precise"]
+    got = rns.fbc_apply(x, plan, precise=True)
+    assert cuda_lib.launches["fbc_precise"] == before + 1
+    want = rns.fbc_apply_plain(x, plan, precise=True)
+    assert got.shape == want.shape
+    assert torch.equal(got, want)
+    return got
+
+
+@pytest.mark.parametrize("kind", ["q_to_b", "b_to_q", "q_to_g"])
+@pytest.mark.parametrize("parts", [2, 3])
+def test_fbc_precise_bfv_batch(dev, bfv14, kind, parts):
+    """bfv_batch's three conversions at its top level on uniform residues
+    at B=8: Q→B [8,parts,7,N]→10, B→Q [8,parts,10,N]→7, Q→G."""
+    _, scheme = bfv14
+    lvl = scheme._lvl(6)
+    plan = lvl["fbc_" + kind]
+    src = to_u32(plan.p)[:, 0]
+    x = _res(np.random.default_rng(parts * 7 + len(kind)),
+             (8, parts, len(src), 1 << 14), src, dev)
+    got = _k9_equals_twin(x, plan)
+    assert got.shape == (8, parts, plan.r.shape[0], 1 << 14)
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_fbc_precise_near_half(dev, seed):
+    """tests/test_rns.py's adversarial columns (Σ y_i/p_i within ~2^-29 of
+    a half-integer), tiled over [8, 6, N]: K9 = the twin = the exact
+    big-integer conversion."""
+    src = gen_primes(30, 6, 2 * 64)
+    dst = [p for p in gen_primes(29, 8, 2 * 64) if p not in src][:4]
+    plan = rns.make_fbc(src, dst, dev)
+    cols = rns_cases.craft_near_half(src, seed=seed, want=16)
+    x = np.concatenate([rns_cases.digits_to_input(y, src, 1) for y in cols],
+                       axis=1)
+    got = _k9_equals_twin(from_u32(np.tile(x, (8, 1, 64)), dev), plan)
+    want = np.stack([rns_cases.expected(y, src, dst)[0] for y in cols],
+                    axis=1)
+    np.testing.assert_array_equal(to_u32(got), np.tile(want, (8, 1, 64)))
+
+
+K9_PRIMES = gen_primes(31, 32, 2048)
+
+
+@pytest.mark.parametrize("S", range(1, 17))
+def test_fbc_precise_edges(dev, S):
+    """K9 on 31-bit primes on both sides (64-bit sums reduced after every
+    4 terms, each term near 2^62): S = 1..16 sources (each exact template
+    and the 16-source one), into 1, 10 and 16 targets, at 1, 3 and 5 rows of N = 1028 (257 column quads a
+    row: no row fills the last block of its tiles); uniform residues with
+    0 and p − 1 in the first columns and p − 1 in every column of the
+    last row."""
+    rng = np.random.default_rng(S)
+    src = K9_PRIMES[:S]
+    q = np.array(src, dtype=np.uint64).reshape(-1, 1)
+    for F in (1, 10, 16):
+        plan = rns.make_fbc(src, K9_PRIMES[16:16 + F], dev)
+        for rows in (1, 3, 5):
+            x = rng.integers(0, 1 << 62, (rows, S, 1028), dtype=np.uint64) % q
+            x[..., :2] = np.concatenate([0 * q, q - 1], axis=1)
+            x[-1] = q - 1
+            got = _k9_equals_twin(from_u32(x, dev), plan)
+            if rows == 1:
+                want = rns.fbc_apply(from_u32(x), rns.make_fbc(
+                    src, K9_PRIMES[16:16 + F], "cpu"), precise=True)
+                assert torch.equal(got.cpu(), want)
+
+
+def test_fbc_precise_refuses_bad_input(dev, bfv14):
+    _, scheme = bfv14
+    plan = scheme._lvl(6)["fbc_q_to_b"]
+    n = 1 << 12
+    x = torch.zeros((2, 7, n), dtype=torch.int32, device=dev)
+    flat = torch.zeros(7 * n + 1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        rns.fbc_precise(flat[1:].view(7, n), plan)
+    with pytest.raises(ValueError, match="contiguous"):
+        rns.fbc_precise(x.transpose(0, 1), plan)
+    with pytest.raises(TypeError):
+        rns.fbc_precise(x.to(torch.int64), plan)
+    with pytest.raises(ValueError, match=r"\[\.\.\., 7, N\]"):
+        rns.fbc_precise(x[:, :6].contiguous(), plan)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        rns.fbc_precise(x[..., :n - 2].contiguous(), plan)
+    with pytest.raises(ValueError, match="CUDA"):
+        rns.fbc_precise(x.cpu(), plan)
+    wide = rns.make_fbc(gen_primes(31, 17, 2048), [3], dev)
+    with pytest.raises(ValueError, match="at most 16"):
+        rns.fbc_precise(torch.zeros((17, 4), dtype=torch.int32,
+                                    device=dev), wide)
+    for kw in ({"correct": False}, {"premul": False}):
+        with pytest.raises(ValueError, match="BFV's form"):
+            rns.fbc_apply(x, plan, precise=True, **kw)
+    assert rns.fbc_precise(x[:0], plan).shape == (0, 10, n)
+
+
+def test_bfv_batch_multiply_card_equals_cpu(dev):
+    """BfvSession.multiply_relin at bfv_batch, B=8, on uniform residues:
+    the card's output (four K9 launches) = the CPU port's, same keys."""
+    kw = dict(seed=b"\x4a" * 32, galois_steps=[])
+    s = BfvSession.create("bfv_batch", device=dev, **kw)
+    cpu = BfvSession.create("bfv_batch", device="cpu", **kw)
+    proto = s.encrypt(np.zeros(4, dtype=np.int64))
+    q = s.ctx.params.moduli[:proto.level + 1]
+    rng = np.random.default_rng(22)
+    a, b = (proto.with_(data=_res(rng, (8, 2, len(q), 1 << 14), q, dev))
+            for _ in range(2))
+    cuda_lib.reset_launches()
+    out = s.multiply_relin(a, b)
+    assert cuda_lib.launches["fbc_precise"] == 4, cuda_lib.launches
+    ref = cpu.multiply_relin(a.to("cpu"), b.to("cpu"))
+    assert torch.equal(out.data.cpu(), ref.data)
+
+
+def test_bfv_convert_span_launches_one_package_kernel(dev):
+    """A profiled multiply_relin (test_bfv_crt, B=2): each of the four
+    ``hetpu/bfv.convert`` spans launches exactly one device operation,
+    K9's ``fbc_precise_kernel``, a ``__global__`` of csrc/*.cu: no plain
+    int64 or float32 pass."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    package = {m for src in pathlib.Path(cuda_lib.CSRC).glob("*.cu")
+               for m in _GLOBAL.findall(src.read_text())}
+    s = BfvSession.create("test_bfv_crt", seed=b"\x4b" * 32,
+                          galois_steps=[], device=dev)
+    proto = s.encrypt(np.zeros(4, dtype=np.int64))
+    q = s.ctx.params.moduli[:proto.level + 1]
+    shape = (2, 2, len(q), s.ctx.params.poly_degree)
+    rng = np.random.default_rng(23)
+    a, b = (proto.with_(data=_res(rng, shape, q, dev)) for _ in range(2))
+    s.multiply_relin(a, b)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        s.multiply_relin(a, b)
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    spans = [e.time_range for e in host if e.name == "hetpu/bfv.convert"]
+    assert len(spans) == 4, [e.name for e in host if "hetpu/" in e.name]
+    for span in spans:
+        called = {e.id for e in host
+                  if e.name.startswith(("cuda", "cuLaunch"))
+                  and span.start <= e.time_range.start <= span.end}
+        names = [e.name for e in events if e.device_type != DeviceType.CPU
+                 and e.id in called and not e.name.startswith("hetpu/")]
+        assert len(names) == 1, names
+        words = set(re.findall(r"\w+", names[0]))
+        assert "fbc_precise_kernel" in words and words & package, names
 
 
 @pytest.mark.parametrize("centered", [False, True])
