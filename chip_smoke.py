@@ -1266,11 +1266,10 @@ def phase_infer_time(sess, cent, ct, diags, act, a, b, smi: str) -> None:
             ops_per_s=B * 1000.0 / ms, card=smi)
 
 
-# device kernel name fragment → kernel of this package (first match wins)
 def profile_calls(fn, calls: int = PROFILE_ITERS, warmup: int = 3) -> dict:
     """torch.profiler over ``calls`` calls of ``fn`` after ``warmup``
     calls, per call: wall µs (profiler on), device µs of this package's
-    kernels (``ours``, by ``trace_op.package_name``) and of the plain
+    kernels (``ours``, by ``cuda_lib.package_kernel``) and of the plain
     torch kernels (``plain``, by name), and the device kernels launched."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1290,7 +1289,7 @@ def profile_calls(fn, calls: int = PROFILE_ITERS, warmup: int = 3) -> dict:
             continue
         us = getattr(e, "self_device_time_total", 0.0)
         n_kernels += e.count
-        name = trace_op.package_name(e.key)
+        name = cuda_lib.package_kernel(e.key)
         bucket = ours if name else plain
         key = name or e.key[:60]
         bucket[key] = bucket.get(key, 0.0) + us / calls

@@ -24,6 +24,7 @@ from pathlib import Path
 import torch
 
 from . import OUT_DIR, bench_sweep, meta, write_record
+from ..core.cuda_lib import package_kernel
 from ..utils.keycache import cached_session
 from ..utils.profiling import PREFIX, profiled, stage_device_us
 
@@ -32,14 +33,6 @@ SEED = b"\x21" * 32
 BATCH, STEPS = 32, 5
 SMALL_BATCH, SMALL_STEPS = 2, 3
 TOP = 15
-# name fragments of the package's kernels (csrc/*.cu), most specific first
-PACKAGE_KERNELS = (("centered_fbc_kernel", "centered_fbc"),
-                   ("centered_kernel", "ntt_fwd_centered"),
-                   ("lifted_kernel", "ntt_fwd_lifted"),
-                   ("fbc_kernel", "ntt_fwd_fbc"),
-                   ("ip_kernel", "inner_product"),
-                   ("tensor_product_kernel", "tensor_product"),
-                   ("ks_tail_kernel", "ks_tail"), ("ntt_kernel", "ntt"))
 
 
 def chain(sess, batch: int):
@@ -60,11 +53,6 @@ def device_us(prof, steps: int) -> tuple[dict, float]:
             out[e.key] = out.get(e.key, 0.0) + us
             count += e.count
     return dict(sorted(out.items(), key=lambda kv: -kv[1])), count / steps
-
-
-def package_name(kernel: str) -> str | None:
-    """The package kernel a device kernel's name belongs to, if any."""
-    return next((k for frag, k in PACKAGE_KERNELS if frag in kernel), None)
 
 
 def run(small: bool, device: str, out=None, steps: int | None = None) -> dict:
@@ -89,9 +77,9 @@ def run(small: bool, device: str, out=None, steps: int | None = None) -> dict:
         wall_us = (time.perf_counter() - t0) * 1e6 / steps
     kernels, per_step = device_us(prof, steps)
     total = sum(kernels.values())
-    ours = sum(us for k, us in kernels.items() if package_name(k))
+    ours = sum(us for k, us in kernels.items() if package_kernel(k))
     for k, us in list(kernels.items())[:TOP]:
-        print(f"{us:10.1f} us/step  {package_name(k) or 'plain'}  {k[:90]}",
+        print(f"{us:10.1f} us/step  {package_kernel(k) or 'plain'}  {k[:90]}",
               flush=True)
     events = json.loads((trace_dir / "trace.json").read_text())["traceEvents"]
     stages = stage_device_us(events, steps)

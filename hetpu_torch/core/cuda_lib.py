@@ -8,12 +8,13 @@ happens at first use, never at import, into ``build/hetpu_torch/`` at the
 repository root; the library's file name carries a hash of the sources
 and flags, so an edited source rebuilds.
 
-Each kernel wrapper (``ntt.py``, ``fused_ntt.py``, ``ip_kernel.py``,
-``centered_fbc.py``, ``tensor_product.py``, ``ks_tail.py``, ``rns.py``,
-``parallel/peer.py``, and the probes' ``copy.py``,
-``overhead2.py``, ``dot.py`` and ``kernel_parts.py``) checks its tensors,
-allocates outputs with ``torch.empty`` (``peer.py`` stores into exchange
-buffers the library allocates), launches on
+:data:`KERNELS` is the one list of the package's kernels, with their C
+entry points and ``__global__`` device functions; :data:`launches`, the
+library's signatures and :func:`package_kernel` derive from it, so a new
+kernel is its source in ``csrc/``, its wrapper module and one entry
+there.  Each wrapper checks its tensors, allocates outputs with
+``torch.empty`` (``parallel/peer.py`` stores into exchange buffers the
+library allocates), launches on
 ``torch.cuda.current_stream()``, raises on a non-zero
 ``cudaGetLastError()`` and adds one to its entry in :data:`launches`.  A
 call made inside :func:`recording` (a CUDA graph capture) does not launch:
@@ -31,9 +32,9 @@ tables and per-prime constants do not count.  Bytes are added only while
 a torch profiler records (``utils.profiling.profiler_on``), so the
 traced slice's launches carry them and an untraced launch pays one check;
 a capture records its launches' bytes, and a replay adds them under the
-same check.  :func:`reset_launches` clears both, and the bytes of the
-precise conversions (``rns.convert_bytes``), counted by the same rule on
-either route.
+same check.  :func:`reset_launches` clears both, and every counter a
+wrapper module registered (:func:`register_counter`: ``rns.convert_bytes``,
+the precise conversions' bytes by the same rule on either route).
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ import contextlib
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -59,12 +61,74 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "--fmad=false", "-Xptxas", "-v")
 
+
+@dataclass(frozen=True)
+class Kernel:
+    """A package kernel: its ``name`` (a key of :data:`launches`), its
+    ``__global__`` device functions as ``csrc/*.cu`` names them, and its C
+    entry points (name → ctypes argument types, the stream last)."""
+    name: str
+    functions: tuple[str, ...]
+    entries: dict[str, tuple]
+
+
+_P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+_Q = ctypes.c_ulonglong
+# each entry point's argument types follow its prototype in csrc/
+KERNELS = (
+    Kernel("ntt", ("ntt_kernel",), {
+        "hetpu_ntt": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P)}),
+    Kernel("ntt_fwd_lifted", ("lifted_kernel",), {
+        "hetpu_ntt_fwd_lifted": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                                 _P, _P, _P, _P, _I, _P)}),
+    Kernel("ntt_fwd_fbc", ("fbc_kernel",), {
+        "hetpu_ntt_fwd_fbc": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                              _P, _P, _P, _P)}),
+    Kernel("ntt_fwd_centered", ("centered_kernel",), {
+        "hetpu_ntt_fwd_centered": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _I,
+                                   _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                   _P)}),
+    Kernel("inner_product", ("ip_kernel",), {
+        "hetpu_inner_product": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)}),
+    Kernel("centered_fbc", ("centered_fbc_kernel",), {
+        "hetpu_centered_fbc": (_P, _P, _I, _I, _I, _I, _P, _I, _I, _P)}),
+    Kernel("tensor_product", ("tensor_product_kernel",), {
+        "hetpu_tensor_product": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P)}),
+    Kernel("ks_tail", ("ks_tail_kernel",), {
+        "hetpu_ks_tail_src": (_P, _I, _I, _P, _I, _I, _P, _I, _I, _I, _I, _I,
+                              _I, _P, _P, _P, _P),
+        "hetpu_ks_tail_out": (_P, _I, _I, _P, _I, _I, _P, _P, _I, _I, _I, _I,
+                              _P, _P, _P, _P, _P, _P),
+        "hetpu_ks_tail_sub_mul": (_P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P),
+        "hetpu_ks_tail_lift_last": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
+                                    _P),
+        "hetpu_ks_tail_own_limbs": (_P, _I, _P, _I, _I, _I, _P, _I, _P, _P, _P,
+                                    _P)}),
+    Kernel("fbc_precise", ("fbc_precise_kernel",), {
+        "hetpu_fbc_precise": (_P, _P, _I, _I, _I, _I, _P, _P)}),
+    Kernel("copy_planes", ("copy_planes_kernel",), {
+        "hetpu_copy_planes": (_P, _P, _I, _I, _I, _I, _I, _P)}),
+    Kernel("muladd_u32", ("muladd_kernel",), {
+        "hetpu_muladd_u32": (_P, _P, ctypes.c_longlong, _P)}),
+    Kernel("dot_i8", ("dot_i8_kernel",), {
+        "hetpu_dot_i8": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P)}),
+    Kernel("plane_parts", ("elem_kernel", "plane_dot_kernel"), {
+        "hetpu_plane_parts": (_P, _P, _P, _P, _P, _I, _I, _U, _I, _P)}),
+    Kernel("peer_permute", ("peer_store", "peer_read"), {
+        "hetpu_peer_store": (_P, _I, _I, _Q, _P, _P, _P, _P, _I, _U, _U, _P),
+        "hetpu_peer_read": (_P, _I, _I, _Q, _P, _Q, _U, _P, _U, _P)}),
+)
+# the C entry points that launch nothing and count nowhere: the error
+# text (a char*) and the exchange buffers of parallel/peer.py
+HELPERS = {"hetpu_error_string": (_I,), "hetpu_peer_wait_value": (_P, _U, _P),
+           "hetpu_peer_alloc": (_Q, _P), "hetpu_peer_free": (_P,),
+           "hetpu_peer_progress": (_P, _P), "hetpu_peer_free_host": (_P,),
+           "hetpu_peer_abort": (_P, _Q, _U), "hetpu_peer_handle": (_P, _P),
+           "hetpu_peer_open": (_P, _P), "hetpu_peer_close": (_P,),
+           "hetpu_peer_copy": (_P, _P, _Q, _P)}
+
 # kernel name → launches made by its wrapper (one per kernel launch)
-launches = {"ntt": 0, "ntt_fwd_lifted": 0, "ntt_fwd_fbc": 0,
-            "ntt_fwd_centered": 0, "inner_product": 0, "centered_fbc": 0,
-            "tensor_product": 0, "ks_tail": 0, "fbc_precise": 0,
-            "copy_planes": 0, "muladd_u32": 0, "dot_i8": 0,
-            "plane_parts": 0, "peer_permute": 0}
+launches = {k.name: 0 for k in KERNELS}
 # kernel name → device-memory bytes of its launches made while a profiler
 # recorded (the rule in the module docstring)
 launch_bytes = dict.fromkeys(launches, 0)
@@ -73,85 +137,33 @@ WORD = 4                   # bytes an int32 residue
 _lock = threading.Lock()
 _lib = None
 _recorded = None           # counts of the capture in progress (recording)
+_counters = []             # wrapper modules' counters (register_counter)
+_KERNEL_OF = {f: k.name for k in KERNELS for f in k.functions}
+_FUNCTION = re.compile(r"(\w+)(?=[<(])")   # a demangled name's function
 
-_P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-_Q = ctypes.c_ulonglong
-_SIGNATURES = {
-    # x, out, rows, L, logn, w, ws, q, c1, c2, inverse, in_stride, stream
-    "hetpu_ntt": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P),
-    # y, out, rows, Ly, F, A, logn, lw, lws, dig, w, ws, q, c1, out_map,
-    # out_limbs, stream
-    "hetpu_ntt_fwd_lifted": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-                             _P, _P, _P, _P, _I, _P),
-    # u, out, rows, A, F, logn, phat, phat_shoup, recip, ptot,
-    # ptot_shoup, w, ws, q, c1, stream
-    "hetpu_ntt_fwd_fbc": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                          _P, _P, _P, _P),
-    # y, out, rows, Ly, F, A, logn, cw, cws, wf, wi, dig, q_src, recip,
-    # pm, pms, w, ws, q, c1, out_map, out_limbs, stream
-    "hetpu_ntt_fwd_centered": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _I,
-                               _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                               _P),
-    # ext, k, ks, q, out, B, J, R, n, bt, stream
-    "hetpu_inner_product": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # x, y, q, qinv_neg, out, rows, L, n, square, stream
-    "hetpu_tensor_product": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # acc, acc_parts, acc_limbs, c, c_parts, c_limbs, out, rows, P, Lo, g,
-    # off, n, q, p_mod, p_mod_shoup, stream
-    "hetpu_ks_tail_src": (_P, _I, _I, _P, _I, _I, _P, _I, _I, _I, _I, _I,
-                          _I, _P, _P, _P, _P),
-    # acc, acc_parts, acc_limbs, c, c_parts, c_limbs, r, out, rows, P, Lo,
-    # n, q, p_mod, p_mod_shoup, w, w_shoup, stream
-    "hetpu_ks_tail_out": (_P, _I, _I, _P, _I, _I, _P, _P, _I, _I, _I, _I,
-                          _P, _P, _P, _P, _P, _P),
-    # x, x_limbs, r, out, rows, Lo, n, q, w, w_shoup, stream
-    "hetpu_ks_tail_sub_mul": (_P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P),
-    # last, out, rows, Lo, n, half, q_src, q, mu, half_mod, stream
-    "hetpu_ks_tail_lift_last": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
-                                _P),
-    # d, d_stride, out, rows, L, n, out_map, out_limbs, q, w, w_shoup, stream
-    "hetpu_ks_tail_own_limbs": (_P, _I, _P, _I, _I, _I, _P, _I, _P, _P, _P,
-                                _P),
-    # y, out, rows, S, F, n, consts, has_alpha, has_extra, stream
-    "hetpu_centered_fbc": (_P, _P, _I, _I, _I, _I, _P, _I, _I, _P),
-    # x, out, rows, S, F, n, consts, stream
-    "hetpu_fbc_precise": (_P, _P, _I, _I, _I, _I, _P, _P),
-    # x, out, R, L, e4, rb, lb, stream
-    "hetpu_copy_planes": (_P, _P, _I, _I, _I, _I, _I, _P),
-    # x, out, n4, stream
-    "hetpu_muladd_u32": (_P, _P, ctypes.c_longlong, _P),
-    # a, b, out, M, K, batch, ppb, a_unsigned, b_unsigned, stream
-    "hetpu_dot_i8": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # x, w, tw, tws, out, planes, L, q, variant, stream
-    "hetpu_plane_parts": (_P, _P, _P, _P, _P, _I, _I, _U, _I, _P),
-    # bases, n, me, cap, srcs, ranks, offs, bytes (host arrays of nseg),
-    # nseg, send_mask, epoch, stream
-    "hetpu_peer_store": (_P, _I, _I, _Q, _P, _P, _P, _P, _I, _U, _U, _P),
-    # bases, n, me, cap, out, out_bytes, recv_mask, progress, epoch, stream
-    "hetpu_peer_read": (_P, _I, _I, _Q, _P, _Q, _U, _P, _U, _P),
-    # the exchange buffers of parallel/peer.py (no launch, not counted):
-    "hetpu_peer_wait_value": (_P, _U, _P),  # word, value, stream
-    "hetpu_peer_alloc": (_Q, _P),          # slot bytes, &ptr
-    "hetpu_peer_free": (_P,),
-    "hetpu_peer_progress": (_P, _P),       # &host ptr, &device ptr
-    "hetpu_peer_free_host": (_P,),
-    "hetpu_peer_abort": (_P, _Q, _U),      # own buffer, slot bytes, poison
-    "hetpu_peer_handle": (_P, _P),         # ptr, 64-byte handle out
-    "hetpu_peer_open": (_P, _P),           # 64-byte handle, &ptr
-    "hetpu_peer_close": (_P,),
-    "hetpu_peer_copy": (_P, _P, _Q, _P),   # dst, src, bytes, stream
-}
+
+def package_kernel(name: str) -> str | None:
+    """The package kernel whose device function a profiler's kernel name
+    calls (``void (anonymous namespace)::fbc_kernel<8>(…)`` →
+    ``"ntt_fwd_fbc"``), by the function's whole identifier; None for any
+    other kernel (PyTorch's own)."""
+    m = _FUNCTION.search(name)
+    return _KERNEL_OF.get(m.group(1)) if m else None
+
+
+def register_counter(counter: dict) -> dict:
+    """Have :func:`reset_launches` clear ``counter``, a wrapper module's
+    own count (``rns.convert_bytes``); returns it."""
+    _counters.append(counter)
+    return counter
 
 
 def reset_launches() -> None:
-    """Clear :data:`launches`, :data:`launch_bytes` and the precise
-    conversions' ``rns.convert_bytes``."""
-    from . import rns                  # rns imports this module
-    for k in launches:
-        launches[k] = 0
-        launch_bytes[k] = 0
-    for k in rns.convert_bytes:
-        rns.convert_bytes[k] = 0
+    """Zero :data:`launches`, :data:`launch_bytes` and each counter of
+    :func:`register_counter`."""
+    for counter in (launches, launch_bytes, *_counters):
+        for k in counter:
+            counter[k] = 0
 
 
 def plane_bytes(n: int, *planes: int) -> int:
@@ -268,11 +280,11 @@ def lib() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             handle = ctypes.CDLL(str(build()))
-            for name, args in _SIGNATURES.items():
+            entries = [e for k in KERNELS for e in k.entries.items()]
+            for name, args in entries + list(HELPERS.items()):
                 fn = getattr(handle, name)
                 fn.argtypes = list(args)
                 fn.restype = ctypes.c_int
-            handle.hetpu_error_string.argtypes = [ctypes.c_int]
             handle.hetpu_error_string.restype = ctypes.c_char_p
             _lib = handle
         return _lib

@@ -45,7 +45,7 @@ from .modular import (add_i64, from_u32, shoup_mul, shoup_precompute,
 from ..utils.profiling import profiler_on
 
 # conversion → bytes of its calls made while a profiler recorded
-convert_bytes = {"fbc_apply": 0}
+convert_bytes = cuda_lib.register_counter({"fbc_apply": 0})
 MAX_SRC, MAX_DST = 16, 16      # K9's largest plan (csrc/fbc_precise.cu)
 
 
