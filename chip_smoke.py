@@ -813,9 +813,10 @@ def k8_cases(rng) -> dict:
     relinearize's mod-down [8,2,14,N] → [8,2,9,N] and at rescale's divide
     [8,2,9,N] → [8,2,8,N], with lift_last [8,2,1,N] → [8,2,8,N]; and
     own_limbs, the decompose's [8,9,N] (a part of [8,3,9,N]) into the
-    digits [8,19,N].  Each timed on uniform residues (the bound counts
-    only the planes the function reads and writes), then exact on edge
-    residues."""
+    digits [8,19,N]; and sub_mul at the BFV scale's y = (u − r)·Q⁻¹ over
+    bfv_batch's auxiliary basis B at the top level, u and r [8,3,10,N].
+    Each timed on uniform residues (the bound counts only the planes the
+    function reads and writes), then exact on edge residues."""
     ctx = Context(preset("bench_n14"))
     n, L, k, g = ctx.params.poly_degree, LEVEL + 1, ctx.num_special, 1
     basis = ctx.params.moduli[:L] + ctx.params.special_moduli
@@ -884,6 +885,22 @@ def k8_cases(rng) -> dict:
                                                plain, [d], written=[d])
         else:
             exact("ks_tail_own_limbs edges", fn, plain)
+
+    # the BFV scale: x and r both [8,3,K_B,N], so Lo = m
+    bctx = Context(preset("bfv_batch"))
+    lvl = BfvScheme(bctx)._lvl(BFV_LEVEL)
+    bp, bn = lvl["B_primes"], bctx.params.poly_degree
+    for make in (residues, edge_residues):
+        u, r = (make(rng, (B, 3, len(bp), bn), bp) for _ in range(2))
+        args = (u, r, lvl["qinv_mod_b"], lvl["qinv_shoup_b"],
+                lvl["tables_B"].q)
+        fn = lambda: ks_tail.sub_mul(*args)
+        plain = lambda: ks_tail.sub_mul_plain(*args)
+        if make is residues:
+            out["ks_tail_sub_mul_bfv_scale"] = compare(
+                "ks_tail_sub_mul_bfv_scale", fn, plain, [u, r])
+        else:
+            exact("ks_tail_sub_mul_bfv_scale edges", fn, plain)
     return out
 
 
@@ -989,13 +1006,17 @@ def slice6_kernel_cases(rng) -> dict:
     grs = hctx.group_rescale_plan(HI_LEVEL)
     mdr = hctx.moddown_rescale_plan(HI_LEVEL)
     L, K = BFV_LEVEL + 1, len(tb.primes)
-    k1 = {  # BFV: the INTTs of a 2-part input and of the 3-part product
-            # over Q, the forward NTT ×R and the INTT over the auxiliary
-            # basis B, the t factor's transforms of encode and decode
+    t_q, t_b = lvl["t_mod_qb"][:L], lvl["t_mod_qb"][L:]
+    k1 = {  # BFV: the INTT of a 2-part input over Q, the scale's INTTs of
+            # the 3-part product over Q and over the auxiliary basis B
+            # with t in the epilogue (u = t·x), the forward NTT ×R over
+            # B, the t factor's transforms of encode and decode
           "ntt_inv_bfv_q2": ((B, 2, L, n), tq, dict(strip_mont=True)),
-          "ntt_inv_bfv_q3": ((B, 3, L, n), tq, dict(strip_mont=True)),
+          "ntt_inv_bfv_q3": ((B, 3, L, n), tq,
+                             dict(strip_mont=True, extra=t_q)),
           "ntt_fwd_bfv_b2": ((B, 2, K, n), tb, dict(to_mont=True)),
-          "ntt_inv_bfv_b3": ((B, 3, K, n), tb, dict(strip_mont=True)),
+          "ntt_inv_bfv_b3": ((B, 3, K, n), tb,
+                             dict(strip_mont=True, extra=t_b)),
           "ntt_inv_bfv_t": ((1, n), tt, {}),
           # g=2: the pair's INTT and the fused tail's (pair + specials)
           "ntt_inv_pair": ((B, 2, len(grs.src_tables.primes), hn),
@@ -1006,6 +1027,11 @@ def slice6_kernel_cases(rng) -> dict:
                               dict(strip_mont=True, extra=mdr.fbc.inv_punit))}
     for name, (shape, t, kw) in k1.items():
         out[name] = ntt_compare(name, residues(rng, shape, t.primes), t, kw)
+    for name in ("ntt_inv_bfv_q3", "ntt_inv_bfv_b3"):
+        shape, t, kw = k1[name]
+        x = edge_residues(rng, shape, t.primes)
+        exact(f"{name} edges", lambda: ntt_inv(x, t, **kw),
+              lambda: ntt_inv_plain(x, t, **kw))
     ks = bctx.keyswitch_plan(BFV_LEVEL)
     y = residues(rng, (B, L, n), tq.primes)
     out["ntt_fwd_lifted_bfv"] = lift_compare("ntt_fwd_lifted bfv", y, ks,
@@ -2242,7 +2268,8 @@ def demo_kernel_cases(rng) -> dict:
     the fft demo's pair rescale of 128 ckks_fft_hi ciphertexts (K1 INTT
     [128,2,2,N], K3 [128,2,2,N]→[128,2,21,N]); bfv_matpow's multiply at
     the 8 rows of a 2×2 square (K1 over Q and over its 9-prime auxiliary
-    basis) and its relinearize at 4 (K2, K3, K4)."""
+    basis, the product's INTTs with t in the epilogue) and its relinearize
+    at 4 (K2, K3, K4)."""
     top = next(p for _, p in chain_sweep(SWEEP_N, SWEEP_HI, SWEEP_HI))
     out = app_kernel_cases(rng, {"sweep26": (top, 1),
                                  "hi13": ("ckks_hi", 64)})
@@ -2259,12 +2286,17 @@ def demo_kernel_cases(rng) -> dict:
     bctx = Context(preset("bfv_matpow"))
     top = bctx.num_data - 1
     tq = bctx.tables(top)
-    tb = BfvScheme(bctx)._lvl(top)["tables_B"]
+    lvl = BfvScheme(bctx)._lvl(top)
+    tb = lvl["tables_B"]
     L, K, n = top + 1, len(tb.primes), bctx.params.poly_degree
     k1 = {"ntt_inv_matpow_q2": ((8, 2, L, n), tq, dict(strip_mont=True)),
-          "ntt_inv_matpow_q3": ((8, 3, L, n), tq, dict(strip_mont=True)),
+          "ntt_inv_matpow_q3": ((8, 3, L, n), tq,
+                                dict(strip_mont=True,
+                                     extra=lvl["t_mod_qb"][:L])),
           "ntt_fwd_matpow_b2": ((8, 2, K, n), tb, dict(to_mont=True)),
-          "ntt_inv_matpow_b3": ((8, 3, K, n), tb, dict(strip_mont=True))}
+          "ntt_inv_matpow_b3": ((8, 3, K, n), tb,
+                                dict(strip_mont=True,
+                                     extra=lvl["t_mod_qb"][L:]))}
     for case, (shape, t, kw) in k1.items():
         out[case] = ntt_compare(f"{case} bfv_matpow",
                                 residues(rng, shape, t.primes), t, kw)
@@ -2997,7 +3029,8 @@ KERNELS = [
       "tensor_product_bfv_b"), "default"),
     ("ks_tail", "hetpu_torch/csrc/ks_tail.cu", "hetpu/core/evaluator.py:410",
      ("ks_tail_out", "ks_tail_src", "ks_tail_sub_mul_moddown",
-      "ks_tail_sub_mul_rescale", "ks_tail_lift_last"), "default"),
+      "ks_tail_sub_mul_rescale", "ks_tail_lift_last",
+      "ks_tail_sub_mul_bfv_scale"), "default"),
     # hetpu's eager jnp conversion of BFV's multiply and decrypt (no
     # pl.pallas_call): fbc_apply with the two-float α (:79)
     ("fbc_precise", "hetpu_torch/csrc/fbc_precise.cu", "hetpu/core/rns.py:103",

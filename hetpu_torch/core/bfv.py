@@ -20,14 +20,14 @@ matmul, batch_matmul_bfv, matpow) and its ``invariant_noise_budget``.
 
 On the card the transforms run in the ``ntt`` kernel (K1) over the data,
 auxiliary and t-factor bases, the tensor products over both in
-``tensor_product`` (K7), mod_switch's divide and relinearize's mod-down
-tail in ``ks_tail`` (K8), the precise-α conversions (the multiply's four,
-decrypt's Q → G) in ``fbc_precise`` (K9, through ``rns.fbc_apply``), and
-relinearize adds K2–K4 (or K6 with ``centered_fbc``); the HPS scaling's
-Shoup multiplies and subtract stay plain PyTorch (the reference runs all
-of these outside any Pallas kernel).  Plain Montgomery products take R⁻¹ (``mont_mul(a, b, q,
-r_inv)``), the kernel −q⁻¹; residues travel to the host through
-``modular.to_u32``.
+``tensor_product`` (K7), mod_switch's divide, relinearize's mod-down tail
+and the HPS scaling's (u − r)·Q⁻¹ in ``ks_tail`` (K8), the precise-α
+conversions (the multiply's four, decrypt's Q → G) in ``fbc_precise``
+(K9, through ``rns.fbc_apply``), and relinearize adds K2–K4 (or K6 with
+``centered_fbc``); the scaling's t·x rides in K1's inverse epilogue (the
+reference runs all of these outside any Pallas kernel).  Plain Montgomery
+products take R⁻¹ (``mont_mul(a, b, q, r_inv)``), the kernel −q⁻¹;
+residues travel to the host through ``modular.to_u32``.
 
 While a torch profiler records, the multiply opens its stage spans
 (:func:`..utils.profiling.span`): ``hetpu/bfv.lift``,
@@ -44,6 +44,7 @@ from .ciphertext import Ciphertext, Plaintext
 from .context import Context
 from .encrypt import Encryptor
 from .evaluator import Evaluator, _div_round_last
+from .ks_tail import sub_mul
 from .modular import (from_u32, mod_add, mod_sub, mont_constants, mont_mul,
                       shoup_companion, shoup_mul, shoup_precompute, to_u32)
 from .ntt import build_tables, ntt_fwd, ntt_fwd_mont, ntt_inv
@@ -421,19 +422,16 @@ class BfvScheme:
                                     plans["r_inv_B"], plans["qinv_neg_B"])
 
         with span("bfv.scale"):
-            # coefficient domain, standard form, both bases
-            cq = ntt_inv(prod_q, tabs_q, strip_mont=True)
-            cb = ntt_inv(prod_b, tables_B, strip_mont=True)
-            # u = t·x over Q ∪ B
-            uq = shoup_mul(cq, plans["t_mod_qb"][:L],
-                           plans["t_shoup_qb"][:L], tabs_q.q)
-            ub = shoup_mul(cb, plans["t_mod_qb"][L:],
-                           plans["t_shoup_qb"][L:], tables_B.q)
+            # u = t·x over Q ∪ B in the coefficient domain, standard form:
+            # t rides in the inverse transform's epilogue
+            uq = ntt_inv(prod_q, tabs_q, strip_mont=True,
+                         extra=plans["t_mod_qb"][:L])
+            ub = ntt_inv(prod_b, tables_B, strip_mont=True,
+                         extra=plans["t_mod_qb"][L:])
             # r = |u|_Q lifted to B; y = (u − r)/Q over B
             r_b = convert(uq, plans["fbc_q_to_b"])
-            y_b = shoup_mul(mod_sub(ub, r_b, tables_B.q),
-                            plans["qinv_mod_b"], plans["qinv_shoup_b"],
-                            tables_B.q)
+            y_b = sub_mul(ub, r_b, plans["qinv_mod_b"],
+                          plans["qinv_shoup_b"], tables_B.q)
             # back to Q
             out_q = convert(y_b, plans["fbc_b_to_q"])
             return Ciphertext(data=ntt_fwd_mont(out_q, tabs_q), level=lvl,

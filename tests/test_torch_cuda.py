@@ -1247,6 +1247,69 @@ def test_profiled_bfv_multiply_books_four_fbc_precise_launches(dev):
         (booked, cuda_lib.launches)
 
 
+def test_bfv_scale_span_runs_package_kernels_only(dev, monkeypatch):
+    """A profiled multiply_relin (bfv_batch, B=2): every device operation
+    launched while ``hetpu/bfv.scale`` is open is one that
+    ``cuda_lib.package_kernel`` books (K1 with t in its inverse epilogue,
+    K9 inside the two conversions, K8 ``sub_mul``, K1 forward): no int64
+    Shoup pass or subtraction.  ``cuda_lib.launches`` counts three ``ntt``
+    launches, one ``ks_tail`` and two ``fbc_precise`` inside the scale,
+    and the output equals the CPU port's bit for bit.  The profiler's
+    kernels are compared as a set: a profiled window can miss a launch."""
+    import contextlib
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from hetpu_torch.core import bfv as bfv_core
+
+    kw = dict(seed=b"\x4d" * 32, galois_steps=[])
+    s = BfvSession.create("bfv_batch", device=dev, **kw)
+    cpu = BfvSession.create("bfv_batch", device="cpu", **kw)
+    proto = s.encrypt(np.zeros(4, dtype=np.int64))
+    q = s.ctx.params.moduli[:proto.level + 1]
+    rng = np.random.default_rng(25)
+    a, b = (proto.with_(data=_res(rng, (2, 2, len(q), 1 << 14), q, dev))
+            for _ in range(2))
+    s.multiply_relin(a, b)
+    torch.cuda.synchronize()
+
+    in_scale = {}
+    real_span = bfv_core.span
+
+    @contextlib.contextmanager
+    def counted(name):
+        before = dict(cuda_lib.launches)
+        with real_span(name):
+            yield
+        if name == "bfv.scale":
+            for k, n in cuda_lib.launches.items():
+                if n > before[k]:
+                    in_scale[k] = in_scale.get(k, 0) + n - before[k]
+
+    monkeypatch.setattr(bfv_core, "span", counted)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device=dev).add_(1)
+        torch.cuda.synchronize()
+        out = s.multiply_relin(a, b)
+        torch.cuda.synchronize()
+    assert in_scale == {"ntt": 3, "ks_tail": 1, "fbc_precise": 2}, in_scale
+    events = list(prof.events())
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    spans = [e.time_range for e in host if e.name == "hetpu/bfv.scale"]
+    assert len(spans) == 1, [e.name for e in host if "hetpu/" in e.name]
+    start, end = spans[0].start, spans[0].end
+    called = {e.id for e in host if e.name.startswith(("cuda", "cuLaunch"))
+              and start <= e.time_range.start <= end}
+    names = {e.name for e in events if e.device_type != DeviceType.CPU
+             and e.id in called and not e.name.startswith("hetpu/")}
+    assert {cuda_lib.package_kernel(n) for n in names} == \
+        {"ntt", "ks_tail", "fbc_precise"}, names
+    ref = cpu.multiply_relin(a.to("cpu"), b.to("cpu"))
+    assert torch.equal(out.data.cpu(), ref.data)
+
+
 @pytest.mark.parametrize("centered", [False, True])
 def test_group_rescale_card_equals_cpu(dev, centered):
     """ckks_hi (rescale_group=2) on the card: the standalone pair rescale,
