@@ -26,8 +26,10 @@ While a torch profiler records, each stage opens its span
 product), ``hetpu/ks.decompose`` (the digit decomposition),
 ``hetpu/ks.inner`` (the key's selection and the inner product),
 ``hetpu/ks.tail`` (the fused relin + rescale divide), ``hetpu/ks.mod_down``
-(the mod-down by P, and the paired rescale) and ``hetpu/rescale`` (the
-one-prime divide).  In ``multiply_relin_rescale`` every kernel falls under
+(the mod-down by P, and the paired rescale), ``hetpu/rescale`` (the
+one-prime divide) and ``hetpu/rot.step`` (one step of a hoisted rotation,
+around its gathers, ``hetpu/rot.galois`` in :func:`.galois.apply`, and its
+key switch).  In ``multiply_relin_rescale`` every kernel falls under
 exactly one of the first four.
 
 ``centered_fbc=True`` is the port's spelling of the reference's
@@ -209,28 +211,48 @@ class Evaluator:
         s') to the base secret.  Returns (p0, p1) Montgomery NTT."""
         return self._inner_product(self._decompose(d, level), level, ksk)
 
-    def rotate_hoisted(self, ct: Ciphertext, steps_list,
-                       gk: GaloisKeys) -> list:
+    def rotate_hoisted_iter(self, ct: Ciphertext, steps_list,
+                            gk: GaloisKeys):
         """Rotate one ciphertext by MANY steps, decomposing c1 only once:
         σ commutes with the digit decomposition, so each step costs one
-        gather of the decomposed digits and one key inner product."""
+        gather of the decomposed digits and one key inner product.
+
+        A generator: it yields each step's rotation as it is made, so a
+        caller that consumes each one before asking for the next holds one
+        step's rotation at a time (beside the one decomposition).  Each
+        step runs under the span ``hetpu/rot.step``, closed before its
+        rotation is yielded; a step of 0 (mod the slots) yields ``ct``."""
         if ct.num_parts != 2:
             raise ValueError("rotate_hoisted expects a 2-part ciphertext")
         n = self.ctx.params.poly_degree
-        q = self.ctx.mont(ct.level)["q"]
         ext = self._decompose(ct.data[..., 1, :, :], ct.level)
-        outs = []
         for steps in steps_list:
             if steps % (n // 2) == 0:
-                outs.append(ct)
-                continue
-            elt = galois.rotation_elt(n, steps)
+                yield ct
+            else:
+                yield self._hoisted_step(ct, ext,
+                                         galois.rotation_elt(n, steps), gk)
+
+    def _hoisted_step(self, ct: Ciphertext, ext: torch.Tensor, elt: int,
+                      gk: GaloisKeys) -> Ciphertext:
+        """One step of a hoisted rotation: the gathers of c0 and of the
+        digits ``ext``, the key's inner product and mod-down, and
+        (c0 + p0, p1).  A call of its own, so that the step's temporaries
+        are freed before the generator yields its rotation."""
+        n = self.ctx.params.poly_degree
+        q = self.ctx.mont(ct.level)["q"]
+        with span("rot.step"):
             c0 = galois.apply(ct.data[..., 0, :, :], n, elt)
             p0, p1 = self._inner_product(galois.apply(ext, n, elt),
                                          ct.level, gk.key_for(elt))
             d = torch.stack([mod_add(c0, p0, q), p1], dim=-3)
-            outs.append(Ciphertext(data=d, level=ct.level, scale=ct.scale))
-        return outs
+        return Ciphertext(data=d, level=ct.level, scale=ct.scale)
+
+    def rotate_hoisted(self, ct: Ciphertext, steps_list,
+                       gk: GaloisKeys) -> list:
+        """:meth:`rotate_hoisted_iter` as a list: every step's rotation
+        held at once."""
+        return list(self.rotate_hoisted_iter(ct, steps_list, gk))
 
     def relinearize(self, ct: Ciphertext, rk: RelinKeys) -> Ciphertext:
         """Reduce a k-part ciphertext to 2 parts: each part p ≥ 2

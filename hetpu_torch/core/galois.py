@@ -16,6 +16,11 @@ gather — no NTT round-trip (SEAL does the same via permutation tables).
 Slot semantics (tied to the encoder's 5^s slot ordering, encoding.py):
   * galois element 5^k mod 2N  ⇔  rotate slots LEFT by k
   * element 2N-1               ⇔  complex conjugation of all slots
+
+While a torch profiler records, ``apply`` opens the span ``hetpu/rot.galois``
+and adds its gather's bytes to :data:`gather_bytes` (every plane read once
+and written once, int32 words, the index not counted: the rule of
+``cuda_lib.launch_bytes``).
 """
 
 from __future__ import annotations
@@ -24,6 +29,12 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+
+from . import cuda_lib
+from ..utils.profiling import profiler_on, span
+
+# the gathers' device-memory bytes while a profiler records
+gather_bytes = cuda_lib.register_counter({"apply": 0})
 
 
 @lru_cache(maxsize=None)
@@ -71,4 +82,9 @@ def _perm_tensor(n: int, galois_elt: int, device: torch.device):
 def apply(data: torch.Tensor, n: int, galois_elt: int) -> torch.Tensor:
     """Gather along the last axis; works on any [..., N] tensor (leading
     batch and digit dimensions pass through)."""
-    return data.index_select(-1, _perm_tensor(n, galois_elt, data.device))
+    if profiler_on():
+        gather_bytes["apply"] += cuda_lib.plane_bytes(
+            n, 2 * data[..., 0].numel())
+    with span("rot.galois"):
+        return data.index_select(-1, _perm_tensor(n, galois_elt,
+                                                  data.device))

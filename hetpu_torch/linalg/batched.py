@@ -10,7 +10,10 @@ Counterpart of ``hetpu/linalg/batched.py`` (the reference's
   every elementwise op is one batched call over the whole matrix;
 * the diagonal-method matmul (``he_linalg.cpp:943-1006``) uses HOISTED
   rotations: the key-switch digit decomposition is computed once per
-  input and reused across all rotation steps;
+  input and reused across all rotation steps, which come one at a time
+  (``Evaluator.rotate_hoisted_iter``); each step's product is added into
+  one running sum as it comes (span ``hetpu/mm.accumulate``), so the
+  loop holds one step's rotation and product, not d of each;
 * products stay 3-part until one batched relinearize + rescale per output.
 
 Layouts (square d×d, one bvec per leading index):
@@ -32,6 +35,7 @@ from ..core import galois
 from ..core.ciphertext import Ciphertext
 from ..core.modular import mod_add
 from ..session import Session
+from ..utils.profiling import span
 
 
 def _has_step_keys(sess: Session, steps) -> bool:
@@ -345,12 +349,16 @@ class BatchedMatrix:
             return self._wrap(out.with_(data=out.data[None]), "col",
                               rows=d, cols=1)
         q = sess.ctx.mont(a.level)["q"]
-        rots = ev.rotate_hoisted(b, list(range(d)), sess.gk)  # batched over cols
-        prods = []
-        for k in range(d):
-            ak = a.with_(data=a.data[k])                      # diag_k(A)
-            prods.append(ev.multiply(rots[k], ak).data)        # [p, 3, L, N]
-        acc = _tree_mod_add(prods, q)
+        acc, k = None, 0
+        # batched over B's columns; step k's rotation meets diag_k(A) as it
+        # comes, so one rotation and one product live at a time (no
+        # enumerate: its kept tuple would hold the last rotation)
+        for rot in ev.rotate_hoisted_iter(b, range(d), sess.gk):
+            with span("mm.accumulate"):
+                prod = ev.multiply(rot, a.with_(data=a.data[k])).data
+                acc = prod if acc is None else mod_add(acc, prod, q)
+            del rot, prod
+            k += 1
         c3 = Ciphertext(data=acc, level=a.level, scale=a.scale * b.scale)
         out = ev.rescale(ev.relinearize(c3, sess.rk))
         return self._wrap(out, "col", rows=d, cols=p)
@@ -379,11 +387,13 @@ class BatchedMatrix:
         a, b = sess.align(self.ct, other.ct)
         d = self.rows
         q = sess.ctx.mont(a.level)["q"]
-        rots = ev.rotate_hoisted(b, list(range(d)), sess.gk)  # [d]-batched each
         outs = []
-        for i in range(d):
-            prod3 = ev.multiply(rots[i], a)                   # [d, 3, L, N]
-            outs.append(_tree_mod_add([prod3.data[j] for j in range(d)], q))
+        for rot in ev.rotate_hoisted_iter(b, range(d), sess.gk):  # [d]-batched
+            with span("mm.accumulate"):
+                prod3 = ev.multiply(rot, a)                   # [d, 3, L, N]
+                outs.append(_tree_mod_add(
+                    [prod3.data[j] for j in range(d)], q))
+            del rot, prod3
         c3 = Ciphertext(data=torch.stack(outs), level=a.level,
                         scale=a.scale * b.scale)
         out = ev.rescale(ev.relinearize(c3, sess.rk))

@@ -3,8 +3,9 @@
   * under ``torch.profiler``, ``multiply_relin_rescale`` (test_tiny) opens
     ``hetpu/mul.tensor``, ``hetpu/ks.decompose``, ``hetpu/ks.inner`` and
     ``hetpu/ks.tail`` once each, in that order, apart, inside the caller's
-    span; ``rotate`` (test_dnum) opens the decompose, the inner product
-    and ``hetpu/ks.mod_down``; ``rescale`` opens ``hetpu/rescale``;
+    span; ``rotate`` (test_dnum) opens ``hetpu/rot.galois`` for the
+    gathers of c0 and c1, then the decompose, the inner product and
+    ``hetpu/ks.mod_down``; ``rescale`` opens ``hetpu/rescale``;
   * with no profiler ``span`` is the one shared no-op, and the outputs
     are bit-equal with and without profiling;
   * every kernel wrapper's bytes (``cuda_lib.plane_bytes``) equal a hand
@@ -96,7 +97,8 @@ def test_rotate_and_rescale_spans(dnum, tmp_path):
     sess, a = dnum
     spans, _, _ = _spans(lambda: sess.ev.rotate(a, 1, sess.gk), tmp_path)
     assert [s["name"] for s in spans] == [
-        "hetpu/ks.decompose", "hetpu/ks.inner", "hetpu/ks.mod_down"]
+        "hetpu/rot.galois", "hetpu/rot.galois", "hetpu/ks.decompose",
+        "hetpu/ks.inner", "hetpu/ks.mod_down"]
     spans, _, _ = _spans(lambda: sess.ev.rescale(a), tmp_path)
     assert [s["name"] for s in spans] == ["hetpu/rescale"]
 
