@@ -74,6 +74,9 @@ run exits non-zero without a result line):
      tail and, at g=2, pair; K4); last K7 ``tensor_product`` at the main
      path's multiply and square (bench_n14 [8,2,9,N] → [8,3,9,N]) and at
      BFV's products over bfv_batch's data basis and auxiliary basis B,
+     and its multiply-and-accumulate ``tensor_product_acc`` at the
+     diagonal method's step (x [128,2,9,N], one diagonal [2,9,N] at a row
+     stride of 0, the sum [128,3,9,N] in place; and the first step),
      and K8 ``ks_tail`` at the bench_n14 level-8 tail (tail_src, tail_out),
      relinearize's mod-down and rescale's divide (sub_mul) and the
      rescale's lift of the last limb (lift_last), each also exact on edge
@@ -258,6 +261,8 @@ from hetpu_torch.core.ntt import (build_tables, ntt_fwd, ntt_fwd_mont,
 from hetpu_torch.core.params import chain_sweep, preset
 from hetpu_torch.core.rns import fbc_apply
 from hetpu_torch.core.tensor_product import (tensor_product,
+                                             tensor_product_acc,
+                                             tensor_product_acc_plain,
                                              tensor_product_plain)
 from hetpu_torch.demos.__main__ import main as demos_main
 from hetpu_torch.demos.math_operations import bench_he_all_chained
@@ -787,6 +792,41 @@ def tp_compare(name, rng, primes, mc, square: bool = False) -> dict:
     return r
 
 
+def tpa_cases(rng, ctx) -> dict:
+    """K7's multiply-and-accumulate at the diagonal method's step
+    (bench_n14 level 8, d = 128 columns): x [128,2,9,N] against one
+    diagonal [2,9,N] read at a row stride of 0, added into the sum
+    [128,3,9,N] in place (each timed call adds once more; the sum stays
+    residues), and the first step (no sum read); timed on uniform
+    residues, then exact on edge residues."""
+    n, L, d = 1 << 14, LEVEL + 1, MATMUL_D
+    primes = ctx.params.moduli[:L]
+    mc = ctx.mont(LEVEL)
+    q, rinv, qn = mc["q"], mc["r_inv"], mc["qinv_neg"]
+    x = residues(rng, (d, 2, L, n), primes)
+    y = residues(rng, (2, L, n), primes)
+    acc = residues(rng, (d, 3, L, n), primes)
+    acc_k, acc_p = acc.clone(), acc.clone()
+    out = {"tensor_product_acc": compare(
+               "tensor_product_acc",
+               lambda: tensor_product_acc(acc_k, x, y, q, rinv, qn),
+               lambda: tensor_product_acc_plain(acc_p, x, y, q, rinv),
+               [x, y, acc]),
+           "tensor_product_acc_init": compare(
+               "tensor_product_acc init",
+               lambda: tensor_product_acc(None, x, y, q, rinv, qn),
+               lambda: tensor_product_acc_plain(None, x, y, q, rinv),
+               [x, y])}
+    del acc_k, acc_p
+    xe, ye = edge_residues(rng, x.shape, primes), edge_residues(rng, y.shape,
+                                                                primes)
+    ae = edge_residues(rng, acc.shape, primes)
+    exact("tensor_product_acc edges",
+          lambda: tensor_product_acc(ae.clone(), xe, ye, q, rinv, qn),
+          lambda: tensor_product_acc_plain(ae.clone(), xe, ye, q, rinv))
+    return out
+
+
 def k7_cases(rng) -> dict:
     """K7 at the main path's multiply (bench_n14 level 8, B=8), its square
     (infer_step's square_relin_rescale) and BFV's products over bfv_batch's
@@ -805,7 +845,8 @@ def k7_cases(rng) -> dict:
                 "tensor_product bfv data basis", rng,
                 bctx.params.moduli[: BFV_LEVEL + 1], bctx.mont(BFV_LEVEL)),
             "tensor_product_bfv_b": tp_compare(
-                "tensor_product bfv basis B", rng, plans["B_primes"], qb)}
+                "tensor_product bfv basis B", rng, plans["B_primes"], qb),
+            **tpa_cases(rng, ctx)}
 
 
 def k8_cases(rng) -> dict:
@@ -1662,8 +1703,11 @@ def phase_matmul128(smi: str) -> dict:
     err = float(np.abs(got - A @ Bm).max())
     if not (np.isfinite(got).all() and err < MATMUL_ERR):
         raise AssertionError(f"matmul128: error {err} (bound {MATMUL_ERR})")
-    _need(launches, K1_K4 + ("ks_tail",), "matmul128",
-          absent=("ntt_fwd_centered", "centered_fbc"))
+    _need(launches, K1_K4 + ("ks_tail", "tensor_product_acc"), "matmul128",
+          absent=("ntt_fwd_centered", "centered_fbc", "tensor_product"))
+    if launches["tensor_product_acc"] != d:
+        raise AssertionError(f"matmul128: {launches['tensor_product_acc']} "
+                             f"multiply-and-accumulate launches, not {d}")
     chunked = torch.cat([ma.matmul(BatchedMatrix(
         sess, mb.ct.with_(data=mb.ct.data[j: j + MATMUL_CHUNK]), d,
         MATMUL_CHUNK, "col")).ct.data for j in range(0, d, MATMUL_CHUNK)])
@@ -3038,6 +3082,11 @@ KERNELS = [
      ("ks_tail_out", "ks_tail_src", "ks_tail_sub_mul_moddown",
       "ks_tail_sub_mul_rescale", "ks_tail_lift_last",
       "ks_tail_sub_mul_bfv_scale"), "default"),
+    # hetpu's products of the diagonal method and their tree of jnp
+    # modular adds (_matmul_diag_col, hetpu/linalg/batched.py:370)
+    ("tensor_product_acc", "hetpu_torch/csrc/tensor_product.cu",
+     "hetpu/linalg/batched.py:370",
+     ("tensor_product_acc", "tensor_product_acc_init"), "matmul128"),
     # hetpu's eager jnp conversion of BFV's multiply and decrypt (no
     # pl.pallas_call): fbc_apply with the two-float α (:79)
     ("fbc_precise", "hetpu_torch/csrc/fbc_precise.cu", "hetpu/core/rns.py:103",

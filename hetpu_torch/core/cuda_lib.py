@@ -117,6 +117,9 @@ KERNELS = (
     Kernel("peer_permute", ("peer_store", "peer_read"), {
         "hetpu_peer_store": (_P, _I, _I, _Q, _P, _P, _P, _P, _I, _U, _U, _P),
         "hetpu_peer_read": (_P, _I, _I, _Q, _P, _Q, _U, _P, _U, _P)}),
+    Kernel("tensor_product_acc", ("tensor_product_acc_kernel",), {
+        "hetpu_tensor_product_acc": (_P, _P, ctypes.c_longlong, _P, _P, _P,
+                                     _I, _I, _I, _I, _P)}),
 )
 # the C entry points that launch nothing and count nowhere: the error
 # text (a char*) and the exchange buffers of parallel/peer.py

@@ -13,7 +13,8 @@ bit-exact with its reference twin.
 On a CUDA tensor the transforms run in hand-written kernels (``ntt``,
 ``ntt_fwd_lifted``, ``ntt_fwd_fbc``, ``inner_product``, and with
 ``centered_fbc=True`` ``ntt_fwd_centered`` in place of the two fused
-ones), and so do the ct·ct product (``tensor_product``), the mod-down
+ones), and so do the ct·ct product (``tensor_product``; added into a
+running sum, ``tensor_product_acc``), the mod-down
 and rescale tails and the digits' own-prime limbs (``ks_tail``).  The key
 switch's digits are built in place: the kernels read the switched part
 where it lies in its ciphertext and store each digit limb once at its
@@ -46,12 +47,13 @@ import torch
 
 from . import cuda_lib, fused_ntt, galois, ip_kernel, ks_tail
 from .centered_fbc import CenteredFbcPlan
-from .ciphertext import Ciphertext, Plaintext, check_add_compat
+from .ciphertext import (Ciphertext, Plaintext, check_add_compat,
+                         scales_close)
 from .context import Context, KeySwitchPlan, RescalePlan
 from .keys import GaloisKeys, KSwitchKey, RelinKeys
 from .modular import mod_add, mod_neg, mod_sub, shoup_mul
 from .ntt import ntt_fwd_mont, ntt_inv
-from .tensor_product import tensor_product
+from .tensor_product import tensor_product, tensor_product_acc
 from ..utils.profiling import span
 
 
@@ -131,6 +133,28 @@ class Evaluator:
             d = tensor_product(a.data, b.data, mc["q"], mc["r_inv"],
                                mc["qinv_neg"])
         return Ciphertext(data=d, level=a.level, scale=a.scale * b.scale)
+
+    def multiply_acc(self, acc: Ciphertext | None, a: Ciphertext,
+                     b: Ciphertext) -> Ciphertext:
+        """acc + a·b, the tensor product added into the running sum ``acc``
+        in place (``acc`` None: a new sum holding a·b): one
+        ``tensor_product_acc`` launch on the card for 2-part operands, with
+        a one-row ``b`` read by every row of ``a`` uncopied."""
+        if a.level != b.level:
+            raise ValueError(f"multiply_acc: level {a.level} vs {b.level}")
+        scale = a.scale * b.scale
+        if acc is not None and (acc.level != a.level
+                                or not scales_close(acc.scale, scale)):
+            raise ValueError(f"multiply_acc: sum at level {acc.level}, "
+                             f"scale {acc.scale} vs a product at level "
+                             f"{a.level}, scale {scale}")
+        mc = self.ctx.mont(a.level)
+        with span("mul.tensor"):
+            d = tensor_product_acc(None if acc is None else acc.data, a.data,
+                                   b.data, mc["q"], mc["r_inv"],
+                                   mc["qinv_neg"])
+        return Ciphertext(data=d, level=a.level,
+                          scale=scale if acc is None else acc.scale)
 
     def square(self, a: Ciphertext) -> Ciphertext:
         if a.num_parts != 2:

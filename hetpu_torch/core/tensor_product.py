@@ -9,6 +9,12 @@ memory, so a CUDA tensor launches the ``tensor_product`` kernel
 (``csrc/tensor_product.cu``) for the 2×2 product and the square, and a CPU
 tensor takes :func:`tensor_product_plain`.  The general k×m product
 (deferred relinearisation) stays plain on either device.
+
+:func:`tensor_product_acc` adds the product into a running sum in place
+(the diagonal method's sum over rotation steps): on a CUDA tensor one
+launch of the ``tensor_product_acc`` kernel, which reads a one-row y at a
+row stride of 0; on a CPU tensor :func:`tensor_product_acc_plain`, the
+product followed by ``mod_add``.
 """
 
 from __future__ import annotations
@@ -51,6 +57,21 @@ def tensor_product_plain(x, y, q, r_inv):
     return torch.stack(parts, dim=-3)
 
 
+def _kernel_consts(name, x, y, q, qinv_neg):
+    """q and −q⁻¹ contiguous, for a K7 launch over x and y [..., L, N];
+    raises unless all four are contiguous int32, the constants one a limb
+    and N a multiple of 4 (the kernels move 16-byte quads)."""
+    q, qinv_neg = q.contiguous(), qinv_neg.contiguous()
+    cuda_lib.check_i32(name, x, y, q, qinv_neg)
+    L, N = x.shape[-2:]
+    if q.numel() != L or qinv_neg.numel() != L:
+        raise ValueError(f"{name}: constants {tuple(q.shape)} do not match "
+                         f"{L} limbs")
+    if N % 4:
+        raise ValueError(f"{name}: N = {N} is not a multiple of 4")
+    return q, qinv_neg
+
+
 def tensor_product(x, y, q, r_inv, qinv_neg):
     """:func:`tensor_product_plain`'s function (``y`` None: the square);
     the ``tensor_product`` kernel on a CUDA tensor for the 2×2 product and
@@ -66,14 +87,8 @@ def tensor_product(x, y, q, r_inv, qinv_neg):
         x, y = torch.broadcast_tensors(x, y)
     x = x.contiguous()
     y = x if square else y.contiguous()
-    q, qinv_neg = q.contiguous(), qinv_neg.contiguous()
-    cuda_lib.check_i32("tensor_product", x, y, q, qinv_neg)
+    q, qinv_neg = _kernel_consts("tensor_product", x, y, q, qinv_neg)
     L, N = x.shape[-2:]
-    if q.numel() != L or qinv_neg.numel() != L:
-        raise ValueError(f"tensor_product: constants {tuple(q.shape)} do "
-                         f"not match {L} limbs")
-    if N % 4:
-        raise ValueError(f"tensor_product: N = {N} is not a multiple of 4")
     out = torch.empty((*x.shape[:-3], 3, L, N), dtype=torch.int32,
                       device=x.device)
     rows = x.numel() // (2 * L * N)
@@ -87,6 +102,61 @@ def tensor_product(x, y, q, r_inv, qinv_neg):
                     nbytes=cuda_lib.plane_bytes(
                         N, rows * 2 * L * (1 if square else 2), rows * 3 * L))
     return out
+
+
+def tensor_product_acc_plain(acc, x, y, q, r_inv):
+    """acc + x·y mod q: :func:`tensor_product_plain`, then ``mod_add``,
+    written into ``acc`` in place and returned; ``acc`` None: x·y in a new
+    tensor (the sum's first term)."""
+    prod = tensor_product_plain(x, y, q, r_inv)
+    if acc is None:
+        return prod
+    if acc.shape != prod.shape:
+        raise ValueError(f"tensor_product_acc: sum {tuple(acc.shape)} vs "
+                         f"product {tuple(prod.shape)}")
+    return acc.copy_(mod_add(acc, prod, q))
+
+
+def tensor_product_acc(acc, x, y, q, r_inv, qinv_neg):
+    """:func:`tensor_product_acc_plain`'s function: acc ← acc + x·y mod q
+    in place (``acc`` None: a new sum holding x·y), returned.  On a CUDA
+    tensor the 2×2 product is one launch of the ``tensor_product_acc``
+    kernel; a y of one row ([2, L, N], every leading axis 1) is read at a
+    row stride of 0 for every row of x, with no broadcast copy.  ``acc``
+    [..., 3, L, N] int32, contiguous, of x·y's broadcast shape."""
+    ts = (x, y, q, qinv_neg, *(() if acc is None else (acc,)))
+    if not cuda_lib.on_card(*ts) or x.shape[-3] != 2 or y.shape[-3] != 2:
+        return tensor_product_acc_plain(acc, x, y, q, r_inv)
+    L, N = x.shape[-2:]
+    # (not torch.broadcast_shapes: its first call imports sympy, seconds)
+    one = y.numel() == 2 * L * N and y.shape[-2:] == (L, N) \
+        and y.dim() <= x.dim()
+    if one:
+        y = y.reshape(2, L, N)
+    elif y.shape != x.shape:
+        x, y = torch.broadcast_tensors(x, y)
+    x, y = x.contiguous(), y.contiguous()
+    q, qinv_neg = _kernel_consts("tensor_product_acc", x, y, q, qinv_neg)
+    out_shape = (*x.shape[:-3], 3, L, N)
+    init = acc is None
+    if init:
+        acc = torch.empty(out_shape, dtype=torch.int32, device=x.device)
+    elif tuple(acc.shape) != out_shape:
+        raise ValueError(f"tensor_product_acc: sum {tuple(acc.shape)} vs "
+                         f"product {out_shape}")
+    cuda_lib.check_i32("tensor_product_acc", acc)
+    rows = x.numel() // (2 * L * N)
+    if rows == 0:
+        return acc
+    cuda_lib.check_aligned("tensor_product_acc", x, y, acc)
+    p = cuda_lib.ptr
+    cuda_lib.launch("tensor_product_acc", "hetpu_tensor_product_acc",
+                    x.device, p(x), p(y), 0 if one else 2 * L * N, p(q),
+                    p(qinv_neg), p(acc), rows, L, N, int(init),
+                    nbytes=cuda_lib.plane_bytes(
+                        N, rows * 2 * L, (1 if one else rows) * 2 * L,
+                        0 if init else rows * 3 * L, rows * 3 * L))
+    return acc
 
 
 # ----------------------------------------------------------------------

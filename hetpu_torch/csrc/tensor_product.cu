@@ -29,6 +29,20 @@
 // * q and -q^-1 are loaded once a thread from the limb's [L] constants (a
 //   block's 256 quads span at most two limbs, so they hit in L1);
 // * no shared memory, no tensor cores: nothing here is a matrix product.
+//
+// Kernel `tensor_product_acc`: the same 2x2 product added into a running
+// sum, acc <- acc + x*y mod q_l in place, for the diagonal method's sum
+// over rotation steps (linalg/batched.py `_matmul_diag_col`).  It replaces
+// no TPU kernel: hetpu sums its products with jnp adds that XLA fuses, and
+// the port ran K7 out of place, then five eager int32 passes of `mod_add`
+// over the 3-part sum, after a broadcast copy of the one diagonal to every
+// row.  One launch reads x [rows, 2, L, N] once, y [2, L, N] at a row
+// stride of 0 (the diagonal, 2.4 MB at bench_n14, stays in L2 across the
+// rows) or of a whole row, and acc [rows, 3, L, N] once, and writes acc
+// once: 2 + 3 + 3 planes a row, the bytes bound of the fused step.  The
+// first step (INIT) writes the product without reading acc.  It keeps
+// K7's quad design and arithmetic; the sum takes one `hetpu::mod_add` a
+// part, so it gives the bits of the product followed by the plain add.
 #include "ntt_common.cuh"
 
 namespace {
@@ -98,6 +112,52 @@ __global__ void __launch_bounds__(kTpThreads)
   o[2 * ln4] = t2;
 }
 
+template <bool INIT>
+__global__ void __launch_bounds__(kTpThreads)
+    tensor_product_acc_kernel(const uint4* __restrict__ x,
+                              const uint4* __restrict__ y, size_t y_row,
+                              const uint32_t* __restrict__ q,
+                              const uint32_t* __restrict__ qn,
+                              uint4* __restrict__ acc, size_t quads, int n4,
+                              size_t ln4) {
+  using hetpu::mod_add;
+  const size_t i = static_cast<size_t>(blockIdx.x) * kTpThreads +
+                   threadIdx.x;
+  if (i >= quads) return;
+  const size_t row = i / ln4;
+  const size_t at = i - row * ln4;           // l * n4 + quad
+  const int l = static_cast<int>(at / n4);
+  const uint32_t ql = __ldg(q + l), qnl = __ldg(qn + l);
+  const uint4* xr = x + row * 2 * ln4 + at;
+  const uint4* yr = y + row * y_row + at;
+  uint4* o = acc + row * 3 * ln4 + at;
+  // every load issued before the arithmetic: 4 (INIT) or 7 in flight
+  const uint4 c0 = xr[0], c1 = xr[ln4];
+  const uint4 d0 = __ldg(yr), d1 = __ldg(yr + ln4);
+  uint4 a0{}, a1{}, a2{};
+  if (!INIT) {
+    a0 = o[0];
+    a1 = o[ln4];
+    a2 = o[2 * ln4];
+  }
+  uint4 t0, t1, t2;
+  product<false>(c0.x, c1.x, d0.x, d1.x, ql, qnl, t0.x, t1.x, t2.x);
+  product<false>(c0.y, c1.y, d0.y, d1.y, ql, qnl, t0.y, t1.y, t2.y);
+  product<false>(c0.z, c1.z, d0.z, d1.z, ql, qnl, t0.z, t1.z, t2.z);
+  product<false>(c0.w, c1.w, d0.w, d1.w, ql, qnl, t0.w, t1.w, t2.w);
+  if (!INIT) {
+    t0 = make_uint4(mod_add(a0.x, t0.x, ql), mod_add(a0.y, t0.y, ql),
+                    mod_add(a0.z, t0.z, ql), mod_add(a0.w, t0.w, ql));
+    t1 = make_uint4(mod_add(a1.x, t1.x, ql), mod_add(a1.y, t1.y, ql),
+                    mod_add(a1.z, t1.z, ql), mod_add(a1.w, t1.w, ql));
+    t2 = make_uint4(mod_add(a2.x, t2.x, ql), mod_add(a2.y, t2.y, ql),
+                    mod_add(a2.z, t2.z, ql), mod_add(a2.w, t2.w, ql));
+  }
+  o[0] = t0;
+  o[ln4] = t1;
+  o[2 * ln4] = t2;
+}
+
 }  // namespace
 
 // x, y: [rows, 2, L, n] (y ignored when `square`), q, qn: [L] (qn = -q^-1
@@ -123,6 +183,36 @@ extern "C" int hetpu_tensor_product(const uint32_t* x, const uint32_t* y,
   } else {
     tensor_product_kernel<false><<<blocks, kTpThreads, 0, stream>>>(
         x4, y4, q, qn, o4, quads, n / 4, ln4);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x: [rows, 2, L, n]; y: 2 parts of [L, n] a row, rows `y_row` words apart
+// (0: one y for every row; 2*L*n: a y a row); q, qn: [L]; acc: [rows, 3,
+// L, n], read (unless `init`) and written in place; all 16-byte aligned.
+extern "C" int hetpu_tensor_product_acc(const uint32_t* x, const uint32_t* y,
+                                        long long y_row, const uint32_t* q,
+                                        const uint32_t* qn, uint32_t* acc,
+                                        int rows, int L, int n, int init,
+                                        cudaStream_t stream) {
+  if (n % 4 != 0 || rows < 0 || L <= 0 || y_row < 0 || y_row % 4 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t ln4 = static_cast<size_t>(L) * (n / 4);
+  const size_t quads = static_cast<size_t>(rows) * ln4;
+  if (quads == 0) return 0;
+  const unsigned blocks =
+      static_cast<unsigned>((quads + kTpThreads - 1) / kTpThreads);
+  const uint4* x4 = reinterpret_cast<const uint4*>(x);
+  const uint4* y4 = reinterpret_cast<const uint4*>(y);
+  const size_t y_row4 = static_cast<size_t>(y_row / 4);
+  uint4* a4 = reinterpret_cast<uint4*>(acc);
+  if (init) {
+    tensor_product_acc_kernel<true><<<blocks, kTpThreads, 0, stream>>>(
+        x4, y4, y_row4, q, qn, a4, quads, n / 4, ln4);
+  } else {
+    tensor_product_acc_kernel<false><<<blocks, kTpThreads, 0, stream>>>(
+        x4, y4, y_row4, q, qn, a4, quads, n / 4, ln4);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -332,8 +332,9 @@ class BatchedMatrix:
 
     def _matmul_diag_col(self, other: "BatchedMatrix") -> "BatchedMatrix":
         """One hoisted decomposition of B's whole batch serves all d
-        rotation steps; the d products stay 3-part until one batched
-        relinearize + rescale."""
+        rotation steps; each step's product is added into one 3-part sum
+        in place (``multiply_acc``: diag_k(A) read by every column
+        uncopied), relinearized and rescaled once."""
         sess, ev = self.sess, self.sess.ev
         if other.rows != self.cols:
             raise ValueError(f"inner dim {self.cols} vs {other.rows}")
@@ -348,19 +349,16 @@ class BatchedMatrix:
                 sess.mesh_axis)
             return self._wrap(out.with_(data=out.data[None]), "col",
                               rows=d, cols=1)
-        q = sess.ctx.mont(a.level)["q"]
         acc, k = None, 0
         # batched over B's columns; step k's rotation meets diag_k(A) as it
-        # comes, so one rotation and one product live at a time (no
+        # comes, so one rotation lives at a time beside the sum (no
         # enumerate: its kept tuple would hold the last rotation)
         for rot in ev.rotate_hoisted_iter(b, range(d), sess.gk):
             with span("mm.accumulate"):
-                prod = ev.multiply(rot, a.with_(data=a.data[k])).data
-                acc = prod if acc is None else mod_add(acc, prod, q)
-            del rot, prod
+                acc = ev.multiply_acc(acc, rot, a.with_(data=a.data[k]))
+            del rot
             k += 1
-        c3 = Ciphertext(data=acc, level=a.level, scale=a.scale * b.scale)
-        out = ev.rescale(ev.relinearize(c3, sess.rk))
+        out = ev.rescale(ev.relinearize(acc, sess.rk))
         return self._wrap(out, "col", rows=d, cols=p)
 
     def _mesh_routable(self, mesh, d: int, p: int) -> bool:

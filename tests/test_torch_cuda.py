@@ -39,6 +39,8 @@ from hetpu_torch.probes import copy as copy_probe
 from hetpu_torch.probes import dot, kernel_parts, overhead2
 from hetpu_torch.session import Session
 from hetpu_torch.core.tensor_product import (tensor_product,
+                                             tensor_product_acc,
+                                             tensor_product_acc_plain,
                                              tensor_product_plain)
 from torch_ties import (TIES_DNUM, TIES_DNUM_CENTERED,
                         TIES_N14_TAIL_CENTERED)
@@ -370,6 +372,47 @@ def test_tensor_product_kernel_bfv_bases(dev, bfv14):
     mc = {"q": plans["q_B"], "r_inv": plans["r_inv_B"],
           "qinv_neg": plans["qinv_neg_B"]}
     _k7_case(rng, plans["B_primes"], mc, (8,), False, dev)
+
+
+@pytest.mark.parametrize("ylead", [(), (128,)],
+                         ids=["diagonal", "full_batch"])
+def test_tensor_product_acc_kernel(dev, n14, ylead):
+    """K7's multiply-and-accumulate at the diagonal cell's step, bench_n14
+    level 8: x [128,2,9,N] against one diagonal [2,9,N] read at a row
+    stride of 0 (or a y of every row), into a sum [128,3,9,N] made by the
+    first launch (init), then two launches in place; = the twin bit for
+    bit on edge residues, and no launch of the out-of-place K7."""
+    mc, primes = n14.mont(8), n14.params.moduli[:9]
+    rng = np.random.default_rng(74)
+    cuda_lib.reset_launches()
+    acc = want = None
+    for step in range(3):
+        x = _edged(rng, (128, 2, 9, 1 << 14), primes, dev)
+        y = _edged(rng, (*ylead, 2, 9, 1 << 14), primes, dev)
+        got = tensor_product_acc(acc, x, y, mc["q"], mc["r_inv"],
+                                 mc["qinv_neg"])
+        assert acc is None or got is acc
+        want = tensor_product_acc_plain(want, x, y, mc["q"], mc["r_inv"])
+        assert torch.equal(got, want), step
+        acc = got
+    assert cuda_lib.launches["tensor_product_acc"] == 3
+    assert cuda_lib.launches["tensor_product"] == 0
+
+
+def test_tensor_product_acc_refuses_bad_input(dev, n14):
+    mc = n14.mont(8)
+    x = torch.zeros((4, 2, 9, 1 << 14), dtype=torch.int32, device=dev)
+    args = (x, x[0], mc["q"], mc["r_inv"], mc["qinv_neg"])
+    with pytest.raises(ValueError, match="sum"):
+        tensor_product_acc(torch.zeros((2, 3, 9, 1 << 14), dtype=torch.int32,
+                                       device=dev), *args)
+    with pytest.raises(ValueError, match="contiguous"):
+        tensor_product_acc(torch.zeros((4, 9, 3, 1 << 14), dtype=torch.int32,
+                                       device=dev).transpose(1, 2), *args)
+    x = torch.zeros((4, 2, 9, 6), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tensor_product_acc(None, x, x[0], mc["q"], mc["r_inv"],
+                           mc["qinv_neg"])
 
 
 def _tail_case(ctx, level, rows, dev, seed):
@@ -1474,9 +1517,25 @@ def test_matrix_card_equals_cpu(dev, tiny_pair):
     cuda_lib.reset_launches()
     got = ma.matmul(mb).ct.data
     assert cuda_lib.launches["inner_product"] > 0
+    # the sum over the d = 4 steps: one fused launch a step, no product
+    # made out of place
+    assert cuda_lib.launches["tensor_product_acc"] == 4
+    assert cuda_lib.launches["tensor_product"] == 0
     mv = lambda m: BatchedMatrix(cpu, m.ct.to("cpu"), m.rows, m.cols,
                                  m.layout)
     assert torch.equal(got.cpu(), mv(ma).matmul(mv(mb)).ct.data)
+
+
+def test_multiply_relin_rescale_keeps_the_out_of_place_product(dev,
+                                                               tiny_pair):
+    """One multiply_relin_rescale launches K7's out-of-place product once
+    and the multiply-and-accumulate entry point never."""
+    s, _ = tiny_pair
+    ct = s.encrypt(np.random.default_rng(18).uniform(-1, 1, s.slots))
+    cuda_lib.reset_launches()
+    s.ev.multiply_relin_rescale(ct, ct, s.rk)
+    assert cuda_lib.launches["tensor_product"] == 1
+    assert cuda_lib.launches["tensor_product_acc"] == 0
 
 
 def test_bfft_card_equals_cpu(dev, tiny_pair):

@@ -8,7 +8,9 @@ the CPU: ``csrc/*.cu`` read as text, nothing built.
     kernel's or a helper's (``cuda_lib.HELPERS``);
   * ``cuda_lib.package_kernel`` books each device function, as the torch
     profiler spells it, to its kernel, and PyTorch's own kernels to none;
-  * ``launches`` keeps its keys and their order (``hebench`` reads them);
+  * ``launches`` keeps its keys and their order (``hebench`` reads them),
+    and ``hebench.trace.package_kernels`` finds the table's device
+    functions in ``csrc/`` and no other;
   * ``cuda_lib`` imports no module of the port above it, and
     ``reset_launches`` clears the counters wrapper modules register.
 """
@@ -122,6 +124,10 @@ PROFILED = [
      "peer_permute"),
     ("(anonymous namespace)::peer_read((anonymous namespace)::ReadArgs)",
      "peer_permute"),
+    ("void (anonymous namespace)::tensor_product_acc_kernel<false>(uint4 "
+     "const*, uint4 const*, unsigned long, unsigned int const*, unsigned "
+     "int const*, uint4*, unsigned long, int, unsigned long)",
+     "tensor_product_acc"),
 ]
 
 
@@ -166,11 +172,21 @@ def test_launch_counters_keep_their_keys():
     names = ["ntt", "ntt_fwd_lifted", "ntt_fwd_fbc", "ntt_fwd_centered",
              "inner_product", "centered_fbc", "tensor_product", "ks_tail",
              "fbc_precise", "copy_planes", "muladd_u32", "dot_i8",
-             "plane_parts", "peer_permute"]
+             "plane_parts", "peer_permute", "tensor_product_acc"]
     assert [k.name for k in cuda_lib.KERNELS] == names
     assert list(cuda_lib.launches) == list(cuda_lib.launch_bytes) == names
     rec = cuda_lib.Recorded()
     assert list(rec) == list(rec.nbytes) == names
+
+
+def test_benchmark_reads_the_table_device_functions():
+    """``hebench.trace.package_kernels`` finds every device function of
+    the table in ``csrc/`` (the multiply-and-accumulate
+    ``tensor_product_acc_kernel`` with the rest), and nothing else."""
+    from hebench import trace
+    names = trace.package_kernels(cuda_lib.CSRC)
+    assert "tensor_product_acc_kernel" in names
+    assert names == {f for k in cuda_lib.KERNELS for f in k.functions}
 
 
 def test_cuda_lib_imports_no_module_above_it(tmp_path):

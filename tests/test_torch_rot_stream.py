@@ -10,9 +10,10 @@ the CPU at test_tiny (8×8 matrices, keys for steps 1..7):
     form: every rotation held, every product held, one balanced tree of
     modular sums, then relinearize and rescale (hetpu's bits are held by
     ``test_torch_linalg.py``);
-  * the loops hold one step's rotation at a time, and at most one earlier
-    product (the running sum's first term): weak references to what the
-    wrapped generator yielded and to what ``multiply`` returned;
+  * the loops hold one step's rotation at a time, and no earlier product:
+    weak references to what the wrapped generator yielded and to what
+    ``multiply`` returned; diag×col adds each step into one sum in place
+    (``multiply_acc``);
   * under ``torch.profiler`` each step opens ``hetpu/rot.step`` (closed
     before the caller's multiply), each gather ``hetpu/rot.galois`` inside
     it, each multiply-and-add ``hetpu/mm.accumulate``; and
@@ -147,12 +148,14 @@ def test_streamed_products_equal_the_former_form(env, form):
 @pytest.mark.parametrize("form", ["diag_col", "cols_t"])
 def test_the_loop_holds_one_rotation_and_product(env, monkeypatch, form):
     """Each time the generator yields a new rotation, no rotation it
-    yielded before is alive; each time a product is made, at most one
-    earlier product is (the running sum's first term, by reference)."""
+    yielded before is alive; col×colᵀ holds no earlier product when it
+    makes one, and diag×col makes none: each step adds into one running
+    sum in place (``multiply_acc``, the same tensor every step)."""
     sess, ma, mb, mc = env
-    rots, prods = [], []
+    rots, prods, sums = [], [], []
     peak = {"rotations": 0, "products": 0}
     stream, mul = Evaluator.rotate_hoisted_iter, Evaluator.multiply
+    mul_acc = Evaluator.multiply_acc
 
     def alive(refs):
         return sum(1 for r in refs if r() is not None)
@@ -170,15 +173,24 @@ def test_the_loop_holds_one_rotation_and_product(env, monkeypatch, form):
         prods.append(weakref.ref(out.data))
         return out
 
+    def accumulated(self, acc, x, y):
+        out = mul_acc(self, acc, x, y)
+        assert acc is None or out.data is acc.data
+        sums.append(out.data.data_ptr())
+        return out
+
     monkeypatch.setattr(Evaluator, "rotate_hoisted_iter", tracked)
     monkeypatch.setattr(Evaluator, "multiply", counted)
+    monkeypatch.setattr(Evaluator, "multiply_acc", accumulated)
     if form == "diag_col":
         ma.matmul(mb)
     else:
         mc.matmul(mb.transp())
-    assert len(rots) == D - 1 and len(prods) == D
-    assert peak == {"rotations": 0, "products": 1 if form == "diag_col"
-                    else 0}
+    assert len(rots) == D - 1
+    assert (len(prods), len(sums)) == ((0, D) if form == "diag_col"
+                                       else (D, 0))
+    assert len(set(sums)) <= 1
+    assert peak == {"rotations": 0, "products": 0}
 
 
 def _host_spans(prof, name):

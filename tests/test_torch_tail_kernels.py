@@ -6,7 +6,9 @@ anchors; the paired-prime divide):
 
   (a) ``tensor_product_plain`` (2×2, the square, and a 3×2 product) and
       the port's ``Evaluator.multiply`` / ``square`` against hetpu's
-      jitted ``Evaluator.multiply`` / ``square``;
+      jitted ``Evaluator.multiply`` / ``square``; the multiply-and-
+      accumulate twin ``tensor_product_acc_plain`` against the product
+      summed by hetpu's ``mod_add`` (at test_tiny and bench_n14's primes);
   (b) the K8 twins against the reference's steps (``hetpu.core.modular``
       on the same inputs, edge residues 0 and q−1 included), and the
       port's ``_relin_rescale_fused``, ``_mod_down`` and
@@ -24,6 +26,10 @@ with their true Shoup companions (the functions are exact for any keys).
 """
 
 import dataclasses
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -40,17 +46,20 @@ from hetpu.core.keys import KSwitchKey as RefKSwitchKey
 from hetpu.core.keys import RelinKeys as RefRelinKeys
 from hetpu.core.params import preset as ref_preset
 from hetpu_torch import convert
-from hetpu_torch.core import evaluator, ks_tail
+from hetpu_torch.core import cuda_lib, evaluator, ks_tail
 from hetpu_torch.core.context import Context
 from hetpu_torch.core.evaluator import Evaluator
 from hetpu_torch.core.modular import (from_u32, mont_constants,
                                       shoup_precompute, to_u32, u32)
 from hetpu_torch.core.params import preset
 from hetpu_torch.core.tensor_product import (redc_u32, tensor_product,
+                                             tensor_product_acc,
+                                             tensor_product_acc_plain,
                                              tensor_product_plain)
 
 torch.set_num_threads(1)
 
+REPO = Path(__file__).resolve().parents[1]
 B = 2
 PRESET = "test_dnum"
 G2 = dict(rescale_group=2, num_anchor=2)
@@ -124,6 +133,105 @@ def test_square_form_is_the_self_product(env):
                       ctx.params.moduli, edges=True))
     assert torch.equal(tensor_product_plain(x, None, mc["q"], mc["r_inv"]),
                        tensor_product_plain(x, x, mc["q"], mc["r_inv"]))
+
+
+@pytest.mark.parametrize("form", ["init", "broadcast", "full_batch"])
+@pytest.mark.parametrize("preset_name", ["test_tiny", "bench_n14"])
+def test_tensor_product_acc_plain_is_the_product_then_mod_add(preset_name,
+                                                              form):
+    """K7's multiply-and-accumulate twin (and its wrapper on the CPU) over
+    the preset's data primes: ``init`` one step from no sum; the others
+    four steps into one sum, y a one-row diagonal [2, L, N] against x
+    [B, 2, L, N] (``broadcast``) or a y of every row (``full_batch``).
+    Each equals the loop of ``tensor_product_plain`` on y copied to x's
+    rows and hetpu's ``mod_add``, bit for bit, and updates the sum in
+    place."""
+    primes = preset(preset_name).moduli
+    mc = {k: from_u32(v) for k, v in mont_constants(primes).items()}
+    q_np = mont_constants(primes)["q"]
+    n = preset(preset_name).poly_degree
+    rng = np.random.default_rng(len(primes) * 10 + len(form))
+    steps = 1 if form == "init" else 4
+    ylead = (B,) if form == "full_batch" else ()
+    xs = [from_u32(_res(rng, (B, 2, len(primes), n), primes, edges=True))
+          for _ in range(steps)]
+    ys = [from_u32(_res(rng, (*ylead, 2, len(primes), n), primes,
+                        edges=True)) for _ in range(steps)]
+    want = None
+    for x, y in zip(xs, ys):
+        prod = to_u32(tensor_product_plain(
+            x, y.expand_as(x).contiguous(), mc["q"], mc["r_inv"]))
+        want = prod if want is None else np.asarray(
+            ref_modular.mod_add(jnp.asarray(want), jnp.asarray(prod),
+                                jnp.asarray(q_np)))
+    for fn in (lambda acc, x, y: tensor_product_acc_plain(
+                   acc, x, y, mc["q"], mc["r_inv"]),
+               lambda acc, x, y: tensor_product_acc(
+                   acc, x, y, mc["q"], mc["r_inv"], mc["qinv_neg"])):
+        acc = None
+        for x, y in zip(xs, ys):
+            out = fn(acc, x, y)
+            assert acc is None or out is acc          # in place
+            acc = out
+        assert acc.shape == (B, 3, len(primes), n)
+        _eq(acc, want)
+
+
+@pytest.mark.parametrize("form", ["init", "diagonal", "full_batch"])
+def test_tensor_product_acc_launch_arguments(form, monkeypatch):
+    """The card wrapper's launch, every tensor taken for a card tensor and
+    no launch made: a one-row y (a slice of a diagonal-layout batch) is
+    passed where it lies at a row stride of 0, a y of every row at one of
+    2·L·N words; the sum is the caller's own tensor (or a new one, with
+    init); the bytes are x, y once, the sum read unless init, the sum
+    written."""
+    made = []
+    monkeypatch.setattr(cuda_lib, "on_card", lambda *t: True)
+    monkeypatch.setattr(cuda_lib, "launch", lambda kernel, fn, dev, *args,
+                        nbytes: made.append((kernel, fn, args, nbytes)))
+    L, n, rows = 3, 64, 5
+    mc = {k: from_u32(v) for k, v in mont_constants(
+        preset("test_tiny").moduli[:L]).items()}
+    x = torch.zeros((rows, 2, L, n), dtype=torch.int32)
+    diags = torch.zeros((4, 2, L, n), dtype=torch.int32)
+    y = x.clone() if form == "full_batch" else diags[2]
+    acc = None if form == "init" else torch.zeros((rows, 3, L, n),
+                                                  dtype=torch.int32)
+    out = tensor_product_acc(acc, x, y, mc["q"], mc["r_inv"], mc["qinv_neg"])
+    assert out.shape == (rows, 3, L, n) and (acc is None or out is acc)
+    [(kernel, fn, args, nbytes)] = made
+    assert (kernel, fn) == ("tensor_product_acc", "hetpu_tensor_product_acc")
+    y_row = 2 * L * n if form == "full_batch" else 0
+    assert args == (x.data_ptr(), y.data_ptr(), y_row,
+                    mc["q"].data_ptr(), mc["qinv_neg"].data_ptr(),
+                    out.data_ptr(), rows, L, n, int(form == "init"))
+    y_planes = (rows if form == "full_batch" else 1) * 2 * L
+    acc_read = 0 if form == "init" else rows * 3 * L
+    assert nbytes == 4 * n * (rows * 2 * L + y_planes + acc_read
+                              + rows * 3 * L)
+
+
+def test_tensor_product_acc_imports_nothing_more():
+    """A card launch of the multiply-and-accumulate (faked) loads no
+    module beyond the port's: ``torch.broadcast_shapes`` would import
+    sympy on its first call, seconds of a cell's set-up."""
+    code = textwrap.dedent("""
+        import sys, torch
+        from hetpu_torch.core import cuda_lib
+        from hetpu_torch.core.tensor_product import tensor_product_acc
+        cuda_lib.on_card = lambda *t: True
+        cuda_lib.launch = lambda *a, nbytes: None
+        before = set(sys.modules)
+        q = torch.ones((3, 1), dtype=torch.int32)
+        x = torch.zeros((4, 2, 3, 64), dtype=torch.int32)
+        acc = tensor_product_acc(None, x, x[1], q, q, q)
+        tensor_product_acc(acc, x, x, q, q, q)
+        print(sorted(set(sys.modules) - before))
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
 
 
 # ----------------------------------------------------------------------
