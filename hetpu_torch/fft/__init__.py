@@ -21,16 +21,30 @@ Counterpart of ``hetpu/fft/__init__.py`` (the reference's ``he::fft``,
 
 Conventions match ``numpy.fft``: fft uses e^{-2πi/n}, ifft its conjugate
 with the 1/n factor.
+
+While a torch profiler records, each ``bfft`` stage opens the spans
+``hetpu/fft.masks`` (its mask products and their sum) and
+``hetpu/fft.rescale`` (its rescale, ⊃ ``ks.mod_down`` in the paired
+mode), beside the hoisted rotation's own spans, and adds the masks'
+bytes to :data:`mask_bytes` (each source and each mask read once, the
+sum written once, int32 words: the rule of ``cuda_lib.launch_bytes``).
 """
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import numpy as np
 import torch
 
+from ..core import cuda_lib
 from ..core.ciphertext import Ciphertext, Plaintext
 from ..core.modular import mod_add, mod_sub
 from ..session import Session
+from ..utils.profiling import profiler_on, span
+
+# the bfft mask stages' device-memory bytes while a profiler records
+mask_bytes = cuda_lib.register_counter({"bfft": 0})
 
 
 def _bit_reversal(n: int) -> np.ndarray:
@@ -65,6 +79,23 @@ def _stage_arrays(n: int, stage_m: int, inverse: bool, last: bool):
     return tw, iu, iv, add_mask
 
 
+@lru_cache(maxsize=None)
+def _reversal_index(n: int, device: torch.device) -> torch.Tensor:
+    """The input's bit reversal on ``device``, built once (a host array
+    handed to the card is a blocking copy from pageable memory)."""
+    return torch.as_tensor(_bit_reversal(n), device=device)
+
+
+@lru_cache(maxsize=None)
+def _stage_index(n: int, stage_m: int, device: torch.device):
+    """One stage's butterfly gathers (iu, iv) and its add/subtract select
+    on ``device``, built once, as :func:`_reversal_index`."""
+    _, iu, iv, add_mask = _stage_arrays(n, stage_m, False, False)
+    return (torch.as_tensor(iu, device=device),
+            torch.as_tensor(iv, device=device),
+            torch.as_tensor(add_mask, device=device)[:, None, None, None])
+
+
 def fft(sess: Session, ct: Ciphertext, inverse: bool = False) -> Ciphertext:
     """DFT across the leading batch axis of `ct` ([n, parts, L, N]); each
     batch element is one 'coefficient' ciphertext whose slots carry
@@ -74,17 +105,16 @@ def fft(sess: Session, ct: Ciphertext, inverse: bool = False) -> Ciphertext:
         raise ValueError("fft length must be a power of two")
     ev = sess.ev
     dev = ct.data.device
-    as_index = lambda a: torch.as_tensor(a, dtype=torch.int64, device=dev)
-    ct = ct.with_(data=ct.data[as_index(_bit_reversal(n))])
+    ct = ct.with_(data=ct.data[_reversal_index(n, dev)])
     m = 2
     while m <= n:
-        tw, iu, iv, add_mask = _stage_arrays(n, m, inverse, last=(m == n))
         # one batched plaintext multiply: odd positions × twiddle, even × 1
         # (the even×1 keeps levels aligned, reference he_fft.cpp:46-47);
         # the stacked plaintext is built once per (n, stage, level)
         key = ("fft_stage", n, m, inverse, m == n, ct.level)
         pt = sess._pt_cache.get(key)
         if pt is None:
+            tw = _stage_arrays(n, m, inverse, last=(m == n))[0]
             pts = [sess.encode(tw[i], level=ct.level) for i in range(n)]
             pt = Plaintext(data=torch.stack([p.data for p in pts]),
                            shoup=torch.stack([p.shoup for p in pts]),
@@ -93,8 +123,8 @@ def fft(sess: Session, ct: Ciphertext, inverse: bool = False) -> Ciphertext:
         twisted = ev.rescale(ev.multiply_plain(ct, pt))
         d = twisted.data
         q = sess.ctx.mont(twisted.level)["q"]
-        du, dv = d[as_index(iu)], d[as_index(iv)]
-        mask = torch.as_tensor(add_mask, device=dev)[:, None, None, None]
+        iu, iv, mask = _stage_index(n, m, dev)
+        du, dv = d[iu], d[iv]
         ct = twisted.with_(data=torch.where(mask, mod_add(du, dv, q),
                                             mod_sub(du, dv, q)))
         m *= 2
@@ -160,18 +190,26 @@ def bfft(sess: Session, ct: Ciphertext, n: int,
         D0, D1, D2 = _bfft_masks(n, h, inverse, last, sess.slots)
         steps = [h] if D2 is None else [h, -h]
         rots = ev.rotate_hoisted(ct, steps, gk)
-        terms = []
-        for di, (D, src) in enumerate(zip((D0, D1, D2), [ct] + rots)):
-            if D is None:
-                continue
-            pt = sess.cached_encode(("bfft_mask", n, h, inverse, last, di),
-                                    D, level=src.level)
-            terms.append(ev.multiply_plain(src, pt))
-        q = sess.ctx.mont(ct.level)["q"]
-        acc = terms[0].data
-        for t in terms[1:]:
-            acc = mod_add(acc, t.data, q)
-        ct = ev.rescale(terms[0].with_(data=acc))
+        with span("fft.masks"):
+            terms = []
+            for di, (D, src) in enumerate(zip((D0, D1, D2), [ct] + rots)):
+                if D is None:
+                    continue
+                pt = sess.cached_encode(
+                    ("bfft_mask", n, h, inverse, last, di), D,
+                    level=src.level)
+                terms.append(ev.multiply_plain(src, pt))
+            q = sess.ctx.mont(ct.level)["q"]
+            acc = terms[0].data
+            for t in terms[1:]:
+                acc = mod_add(acc, t.data, q)
+            if profiler_on():
+                planes = acc[..., 0].numel()
+                mask_bytes["bfft"] += cuda_lib.plane_bytes(
+                    acc.shape[-1], (len(terms) + 1) * planes,
+                    len(terms) * acc.shape[-2])
+        with span("fft.rescale"):
+            ct = ev.rescale(terms[0].with_(data=acc))
     return ct
 
 

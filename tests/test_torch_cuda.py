@@ -1548,6 +1548,22 @@ def test_bfft_card_equals_cpu(dev, tiny_pair):
     assert torch.equal(got.cpu(), bfft(cpu, ct.to("cpu"), 4).data)
 
 
+def test_bfft_paired_card_equals_cpu(dev):
+    """An 8-point in-slot FFT at test_hi (the merged ±4 stage, then ±2,
+    ±1, each rescaled by a prime pair through the mod-down): the card
+    equals the CPU bit for bit."""
+    s = Session.create("test_hi", seed=b"\x1b" * 32,
+                       galois_steps=[4, 2, -2, 1, -1], device=dev)
+    cpu = Session.from_wire(s.ctx.params, s.rk, s.gk, device="cpu")
+    rng = np.random.default_rng(27)
+    sig = rng.uniform(-1, 1, 8) + 1j * rng.uniform(-1, 1, 8)
+    ct = s.encrypt(np.tile(sig, s.slots // 8))
+    got = bfft(s, ct, 8)
+    want = bfft(cpu, ct.to("cpu"), 8)
+    assert got.level == want.level == ct.level - 6
+    assert torch.equal(got.data.cpu(), want.data)
+
+
 def test_server_reply_card_equals_cpu(dev):
     """One request (simple at test_tiny) served on the card and on the
     CPU: the reply frames are equal byte for byte."""

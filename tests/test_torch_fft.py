@@ -8,6 +8,7 @@ rotations), each hetpu result computed once, and the decrypts against
 
 import numpy as np
 import pytest
+import torch
 import jax.numpy as jnp
 
 from hetpu import fft as ref_fft
@@ -80,6 +81,21 @@ def test_fft_stage_plaintexts_are_cached(env):
     port_fft.fft(port, batch)
     assert len(port._pt_cache) == size
     assert port._pt_cache[keys[0]] is pt
+
+
+def test_fft_index_tensors_are_cached(env):
+    """The bit reversal and each stage's gathers and add/subtract select
+    are built on the device once per (n, stage, device): a second call
+    builds none, and gives the same residues."""
+    port, _, batch, _, _ = env
+    first = port_fft.fft(port, batch)
+    built = (port_fft._reversal_index.cache_info().misses,
+             port_fft._stage_index.cache_info().misses)
+    port_fft.fft(port, batch, inverse=True)
+    again = port_fft.fft(port, batch)
+    assert (port_fft._reversal_index.cache_info().misses,
+            port_fft._stage_index.cache_info().misses) == built
+    assert torch.equal(first.data, again.data)
 
 
 def test_bfft_and_ibfft(env):
