@@ -77,6 +77,9 @@ run exits non-zero without a result line):
      and its multiply-and-accumulate ``tensor_product_acc`` at the
      diagonal method's step (x [128,2,9,N], one diagonal [2,9,N] at a row
      stride of 0, the sum [128,3,9,N] in place; and the first step),
+     ``plain_mul_sum`` at the in-slot FFT's first and last stage
+     (ckks_fft_hi, 64 ciphertexts: two terms over [64,2,23,N], three over
+     [64,2,5,N], one-row masks),
      and K8 ``ks_tail`` at the bench_n14 level-8 tail (tail_src, tail_out),
      relinearize's mod-down and rescale's divide (sub_mul) and the
      rescale's lift of the last limb (lift_last), each also exact on edge
@@ -259,6 +262,7 @@ from hetpu_torch.core.modular import from_u32, shoup_companion, to_u32
 from hetpu_torch.core.ntt import (build_tables, ntt_fwd, ntt_fwd_mont,
                                   ntt_fwd_plain, ntt_inv, ntt_inv_plain)
 from hetpu_torch.core.params import chain_sweep, preset
+from hetpu_torch.core.plain_mul import plain_mul_sum, plain_mul_sum_plain
 from hetpu_torch.core.rns import fbc_apply
 from hetpu_torch.core.tensor_product import (tensor_product,
                                              tensor_product_acc,
@@ -827,6 +831,39 @@ def tpa_cases(rng, ctx) -> dict:
     return out
 
 
+def pms_cases(rng) -> dict:
+    """The in-slot FFT's masked sum at ckks_fft_hi's two extreme stages,
+    64 ciphertexts at N=2^15, each mask one row [L,N] read at a row stride
+    of 0: the first stage's two terms over [64,2,23,N] and the last's
+    three over [64,2,5,N]; timed on uniform residues, then exact on edge
+    residues."""
+    ctx = Context(preset("ckks_fft_hi"))
+    n = ctx.params.poly_degree
+    out = {}
+    for name, limbs, k in (("plain_mul_sum_top", 23, 2),
+                           ("plain_mul_sum_last", 5, 3)):
+        primes = ctx.params.moduli[:limbs]
+        q = ctx.tables(limbs - 1).q
+
+        def terms(make):
+            ts = []
+            for _ in range(k):
+                w = make(rng, (limbs, n), primes)
+                ts.append((make(rng, (BFFT_CTS, 2, limbs, n), primes), w,
+                           shoup_companion(w, q)))
+            return ts
+
+        ts = terms(residues)
+        out[name] = compare(name, lambda: plain_mul_sum(ts, q),
+                            lambda: plain_mul_sum_plain(ts, q),
+                            [t for term in ts for t in term])
+        del ts
+        te = terms(edge_residues)
+        exact(f"{name} edges", lambda: plain_mul_sum(te, q),
+              lambda: plain_mul_sum_plain(te, q))
+    return out
+
+
 def k7_cases(rng) -> dict:
     """K7 at the main path's multiply (bench_n14 level 8, B=8), its square
     (infer_step's square_relin_rescale) and BFV's products over bfv_batch's
@@ -1026,6 +1063,7 @@ def phase_kernels(rng) -> dict:
     out.update(slice6_kernel_cases(rng))
     out.update(app_kernel_cases(rng))
     out.update(k7_cases(rng))
+    out.update(pms_cases(rng))
     out.update(k8_cases(rng))
     out.update(k9_cases(rng))
     for name, r in out.items():
@@ -1755,7 +1793,7 @@ def phase_bfft(smi: str) -> dict:
     err = max(errs)
     if not (fout.data.shape[0] == nct and err < BFFT_ERR):
         raise AssertionError(f"bfft: error {err} (bound {BFFT_ERR})")
-    _need(launches, K1_K4 + ("ks_tail",), "bfft",
+    _need(launches, K1_K4 + ("ks_tail", "plain_mul_sum"), "bfft",
           absent=("ntt_fwd_centered", "centered_fbc"))
     log("bfft", preset="ckks_fft", n=n, cts=nct, max_err=err, bound=BFFT_ERR,
         setup_seconds=round(setup, 3), seconds_first=first,
@@ -3087,6 +3125,12 @@ KERNELS = [
     ("tensor_product_acc", "hetpu_torch/csrc/tensor_product.cu",
      "hetpu/linalg/batched.py:370",
      ("tensor_product_acc", "tensor_product_acc_init"), "matmul128"),
+    # hetpu's plaintext multiply over modular.shoup_mul, fused under the
+    # evaluator's jax.jit, and bfft's jnp mod_add of the stage's products
+    # (hetpu/fft/__init__.py:176-178)
+    ("plain_mul_sum", "hetpu_torch/csrc/plain_mul.cu",
+     "hetpu/core/evaluator.py:109",
+     ("plain_mul_sum_top", "plain_mul_sum_last"), "bfft1024x64"),
     # hetpu's eager jnp conversion of BFV's multiply and decrypt (no
     # pl.pallas_call): fbc_apply with the two-float α (:79)
     ("fbc_precise", "hetpu_torch/csrc/fbc_precise.cu", "hetpu/core/rns.py:103",
@@ -3095,6 +3139,7 @@ KERNELS = [
 ]
 # the other sites each row stands for (hetpu's fused jnp code)
 ALSO_REPLACES = {"tensor_product": ["hetpu/core/evaluator.py:150"],
+                 "plain_mul_sum": ["hetpu/fft/__init__.py:176"],
                  "fbc_precise": ["hetpu/core/rns.py:79"],
                  "ks_tail": ["hetpu/core/evaluator.py:455",
                              "hetpu/core/evaluator.py:482"]}

@@ -120,6 +120,10 @@ KERNELS = (
     Kernel("tensor_product_acc", ("tensor_product_acc_kernel",), {
         "hetpu_tensor_product_acc": (_P, _P, ctypes.c_longlong, _P, _P, _P,
                                      _I, _I, _I, _I, _P)}),
+    Kernel("plain_mul_sum", ("plain_mul_sum_kernel",), {
+        "hetpu_plain_mul_sum": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                ctypes.c_longlong, _P, _P, _I, _I, _I, _I,
+                                _P)}),
 )
 # the C entry points that launch nothing and count nowhere: the error
 # text (a char*) and the exchange buffers of parallel/peer.py

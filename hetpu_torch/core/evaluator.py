@@ -15,12 +15,13 @@ On a CUDA tensor the transforms run in hand-written kernels (``ntt``,
 ``centered_fbc=True`` ``ntt_fwd_centered`` in place of the two fused
 ones), and so do the ct·ct product (``tensor_product``; added into a
 running sum, ``tensor_product_acc``), the mod-down
-and rescale tails and the digits' own-prime limbs (``ks_tail``).  The key
+and rescale tails and the digits' own-prime limbs (``ks_tail``), and the
+plaintext products with their sum (``plain_mul_sum``).  The key
 switch's digits are built in place: the kernels read the switched part
 where it lies in its ciphertext and store each digit limb once at its
 place, so no copy or concatenation runs in the decomposition.  The other
-elementwise steps (Galois gathers, the plaintext Shoup multiplies, the
-ops' concatenations and stacks, mod add/sub) stay plain PyTorch.
+elementwise steps (Galois gathers, ``add_plain``'s Shoup lift, the ops'
+concatenations and stacks, mod add/sub) stay plain PyTorch.
 
 While a torch profiler records, each stage opens its span
 (:func:`..utils.profiling.span`): ``hetpu/mul.tensor`` (the tensor
@@ -53,6 +54,7 @@ from .context import Context, KeySwitchPlan, RescalePlan
 from .keys import GaloisKeys, KSwitchKey, RelinKeys
 from .modular import mod_add, mod_neg, mod_sub, shoup_mul
 from .ntt import ntt_fwd_mont, ntt_inv
+from .plain_mul import plain_mul_sum
 from .tensor_product import tensor_product, tensor_product_acc
 from ..utils.profiling import span
 
@@ -116,12 +118,37 @@ class Evaluator:
     # ------------------------------------------------------------------
 
     def multiply_plain(self, ct: Ciphertext, pt: Plaintext) -> Ciphertext:
-        if ct.level != pt.level:
-            raise ValueError(f"multiply_plain: level {ct.level} vs {pt.level}")
-        q = self.ctx.tables(ct.level).q
-        d = shoup_mul(ct.data, pt.data.unsqueeze(-3), pt.shoup.unsqueeze(-3),
-                      q)
-        return Ciphertext(data=d, level=ct.level, scale=ct.scale * pt.scale)
+        return self.multiply_plain_sum([(ct, pt)])
+
+    def multiply_plain_sum(self, pairs) -> Ciphertext:
+        """Σₖ ctₖ·ptₖ over one to three (ciphertext, plaintext) pairs whose
+        ciphertexts share one level and shape and whose products' scales
+        agree (the sum takes the first product's scale): one launch of the
+        ``plain_mul_sum`` kernel on the card (:mod:`.plain_mul`), with a
+        plaintext of one row read by every row uncopied and one of the
+        ciphertext's leading axes (the coefficient FFT's stacked twiddles)
+        one a row, another broadcast expanded to that form; the plain Shoup
+        products and ``mod_add`` on the CPU.  The shapes are checked in
+        :mod:`.plain_mul`."""
+        pairs = list(pairs)
+        if not pairs:
+            raise ValueError("multiply_plain_sum: no terms")
+        ct0, pt0 = pairs[0]
+        scale = ct0.scale * pt0.scale
+        for ct, pt in pairs:
+            if ct.level != pt.level:
+                raise ValueError(f"multiply_plain: level {ct.level} vs "
+                                 f"{pt.level}")
+            if ct.level != ct0.level:
+                raise ValueError(f"multiply_plain_sum: a source at level "
+                                 f"{ct.level} vs {ct0.level}")
+            if not scales_close(ct.scale * pt.scale, scale):
+                raise ValueError(f"multiply_plain_sum: product scale "
+                                 f"{ct.scale * pt.scale} vs {scale}")
+        q = self.ctx.tables(ct0.level).q
+        d = plain_mul_sum([(ct.data.contiguous(), pt.data, pt.shoup)
+                           for ct, pt in pairs], q)
+        return Ciphertext(data=d, level=ct0.level, scale=scale)
 
     def multiply(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         """ct·ct tensor product: k-part × m-part → (k+m−1)-part; the 2×2

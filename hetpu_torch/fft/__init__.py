@@ -23,9 +23,10 @@ Conventions match ``numpy.fft``: fft uses e^{-2πi/n}, ifft its conjugate
 with the 1/n factor.
 
 While a torch profiler records, each ``bfft`` stage opens the spans
-``hetpu/fft.masks`` (its mask products and their sum) and
-``hetpu/fft.rescale`` (its rescale, ⊃ ``ks.mod_down`` in the paired
-mode), beside the hoisted rotation's own spans, and adds the masks'
+``hetpu/fft.masks`` (its mask products and their sum,
+``Evaluator.multiply_plain_sum``: one ``plain_mul_sum`` launch on the
+card) and ``hetpu/fft.rescale`` (its rescale, ⊃ ``ks.mod_down`` in the
+paired mode), beside the hoisted rotation's own spans, and adds the masks'
 bytes to :data:`mask_bytes` (each source and each mask read once, the
 sum written once, int32 words: the rule of ``cuda_lib.launch_bytes``).
 """
@@ -191,25 +192,20 @@ def bfft(sess: Session, ct: Ciphertext, n: int,
         steps = [h] if D2 is None else [h, -h]
         rots = ev.rotate_hoisted(ct, steps, gk)
         with span("fft.masks"):
-            terms = []
-            for di, (D, src) in enumerate(zip((D0, D1, D2), [ct] + rots)):
-                if D is None:
-                    continue
-                pt = sess.cached_encode(
-                    ("bfft_mask", n, h, inverse, last, di), D,
-                    level=src.level)
-                terms.append(ev.multiply_plain(src, pt))
-            q = sess.ctx.mont(ct.level)["q"]
-            acc = terms[0].data
-            for t in terms[1:]:
-                acc = mod_add(acc, t.data, q)
+            pairs = [(src, sess.cached_encode(
+                          ("bfft_mask", n, h, inverse, last, di), D,
+                          level=src.level))
+                     for di, (D, src) in enumerate(zip((D0, D1, D2),
+                                                       [ct] + rots))
+                     if D is not None]
+            acc = ev.multiply_plain_sum(pairs)
             if profiler_on():
-                planes = acc[..., 0].numel()
+                planes = acc.data[..., 0].numel()
                 mask_bytes["bfft"] += cuda_lib.plane_bytes(
-                    acc.shape[-1], (len(terms) + 1) * planes,
-                    len(terms) * acc.shape[-2])
+                    acc.data.shape[-1], (len(pairs) + 1) * planes,
+                    len(pairs) * acc.data.shape[-2])
         with span("fft.rescale"):
-            ct = ev.rescale(terms[0].with_(data=acc))
+            ct = ev.rescale(acc)
     return ct
 
 

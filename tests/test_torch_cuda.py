@@ -38,6 +38,7 @@ from hetpu_torch.offload.server import handle
 from hetpu_torch.probes import copy as copy_probe
 from hetpu_torch.probes import dot, kernel_parts, overhead2
 from hetpu_torch.session import Session
+from hetpu_torch.core.plain_mul import plain_mul_sum, plain_mul_sum_plain
 from hetpu_torch.core.tensor_product import (tensor_product,
                                              tensor_product_acc,
                                              tensor_product_acc_plain,
@@ -413,6 +414,36 @@ def test_tensor_product_acc_refuses_bad_input(dev, n14):
     with pytest.raises(ValueError, match="multiple of 4"):
         tensor_product_acc(None, x, x[0], mc["q"], mc["r_inv"],
                            mc["qinv_neg"])
+
+
+@pytest.mark.parametrize("limbs", [23, 5], ids=["top", "last"])
+@pytest.mark.parametrize("per_row", [False, True],
+                         ids=["one_row", "per_row"])
+@pytest.mark.parametrize("terms", [1, 2, 3])
+def test_plain_mul_sum_kernel(dev, terms, per_row, limbs):
+    """The in-slot FFT's masked sum at ckks_fft_hi (N=2^15, 64 ciphertexts):
+    the first stage's [64,2,23,N] and the last stage's [64,2,5,N] sources,
+    1 to 3 terms, each mask one row [L,N] (read at a row stride of 0) or
+    one a ciphertext [64,L,N]; one launch = the twin bit for bit on edge
+    residues (0, 1 and q−1 in every plane of sources and masks)."""
+    n, primes = 1 << 15, preset("ckks_fft_hi").moduli[:limbs]
+    q = from_u32(np.array(primes, dtype=np.uint32).reshape(-1, 1), dev)
+    rng = np.random.default_rng(80 + 10 * terms + 2 * per_row + limbs)
+
+    def edged(shape):
+        x = _edged(rng, shape, primes, dev)
+        x[..., 1] = 1
+        return x
+
+    lead = (64,) if per_row else ()
+    ts = []
+    for _ in range(terms):
+        w = edged((*lead, limbs, n))
+        ts.append((edged((64, 2, limbs, n)), w, shoup_companion(w, q)))
+    cuda_lib.reset_launches()
+    got = plain_mul_sum(ts, q)
+    assert cuda_lib.launches["plain_mul_sum"] == 1
+    assert torch.equal(got, plain_mul_sum_plain(ts, q))
 
 
 def _tail_case(ctx, level, rows, dev, seed):
@@ -1548,20 +1579,62 @@ def test_bfft_card_equals_cpu(dev, tiny_pair):
     assert torch.equal(got.cpu(), bfft(cpu, ct.to("cpu"), 4).data)
 
 
-def test_bfft_paired_card_equals_cpu(dev):
-    """An 8-point in-slot FFT at test_hi (the merged ±4 stage, then ±2,
-    ±1, each rescaled by a prime pair through the mod-down): the card
-    equals the CPU bit for bit."""
+@pytest.fixture(scope="module")
+def hi_fft(dev):
+    """test_hi on the card and on the CPU (the same keys), with the steps
+    of an 8-point bfft, and one ciphertext of a tiled 8-point signal."""
     s = Session.create("test_hi", seed=b"\x1b" * 32,
                        galois_steps=[4, 2, -2, 1, -1], device=dev)
     cpu = Session.from_wire(s.ctx.params, s.rk, s.gk, device="cpu")
     rng = np.random.default_rng(27)
     sig = rng.uniform(-1, 1, 8) + 1j * rng.uniform(-1, 1, 8)
-    ct = s.encrypt(np.tile(sig, s.slots // 8))
+    return s, cpu, s.encrypt(np.tile(sig, s.slots // 8))
+
+
+def test_bfft_paired_card_equals_cpu(dev, hi_fft):
+    """An 8-point in-slot FFT at test_hi (the merged ±4 stage, then ±2,
+    ±1, each rescaled by a prime pair through the mod-down): the card
+    equals the CPU bit for bit."""
+    s, cpu, ct = hi_fft
     got = bfft(s, ct, 8)
     want = bfft(cpu, ct.to("cpu"), 8)
     assert got.level == want.level == ct.level - 6
     assert torch.equal(got.data.cpu(), want.data)
+
+
+def test_bfft_masks_span_runs_plain_mul_sum_only(dev, hi_fft):
+    """A profiled 8-point bfft at test_hi, its masks encoded by an earlier
+    call: log2(8) = 3 ``plain_mul_sum`` launches, one a stage, and every
+    device operation launched while a ``hetpu/fft.masks`` span is open is
+    that kernel's (no int64 Shoup pass, no plain ``mod_add``); the output
+    equals the unprofiled call's.  The profiler's kernels are compared as
+    a set: a profiled window can miss a launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    s, _, ct = hi_fft
+    want = bfft(s, ct, 8)
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device=dev).add_(1)
+        torch.cuda.synchronize()
+        got = bfft(s, ct, 8)
+        torch.cuda.synchronize()
+    assert cuda_lib.launches["plain_mul_sum"] == 3, cuda_lib.launches
+    assert torch.equal(got.data, want.data)
+    events = list(prof.events())
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    spans = [e.time_range for e in host if e.name == "hetpu/fft.masks"]
+    assert len(spans) == 3, [e.name for e in host if "hetpu/" in e.name]
+    called = {e.id for e in host if e.name.startswith(("cuda", "cuLaunch"))
+              and any(r.start <= e.time_range.start <= r.end
+                      for r in spans)}
+    names = {e.name for e in events if e.device_type != DeviceType.CPU
+             and e.id in called and not e.name.startswith("hetpu/")}
+    assert {cuda_lib.package_kernel(n) for n in names} == \
+        {"plain_mul_sum"}, names
 
 
 def test_server_reply_card_equals_cpu(dev):

@@ -128,6 +128,9 @@ PROFILED = [
      "const*, uint4 const*, unsigned long, unsigned int const*, unsigned "
      "int const*, uint4*, unsigned long, int, unsigned long)",
      "tensor_product_acc"),
+    ("void (anonymous namespace)::plain_mul_sum_kernel<3, false>((anonymous "
+     "namespace)::Terms, unsigned int const*, uint4*, int, int, int, int, "
+     "unsigned long)", "plain_mul_sum"),
 ]
 
 
@@ -172,7 +175,8 @@ def test_launch_counters_keep_their_keys():
     names = ["ntt", "ntt_fwd_lifted", "ntt_fwd_fbc", "ntt_fwd_centered",
              "inner_product", "centered_fbc", "tensor_product", "ks_tail",
              "fbc_precise", "copy_planes", "muladd_u32", "dot_i8",
-             "plane_parts", "peer_permute", "tensor_product_acc"]
+             "plane_parts", "peer_permute", "tensor_product_acc",
+             "plain_mul_sum"]
     assert [k.name for k in cuda_lib.KERNELS] == names
     assert list(cuda_lib.launches) == list(cuda_lib.launch_bytes) == names
     rec = cuda_lib.Recorded()
@@ -182,10 +186,12 @@ def test_launch_counters_keep_their_keys():
 def test_benchmark_reads_the_table_device_functions():
     """``hebench.trace.package_kernels`` finds every device function of
     the table in ``csrc/`` (the multiply-and-accumulate
-    ``tensor_product_acc_kernel`` with the rest), and nothing else."""
+    ``tensor_product_acc_kernel`` and the plaintext products' sum
+    ``plain_mul_sum_kernel`` with the rest), and nothing else."""
     from hebench import trace
     names = trace.package_kernels(cuda_lib.CSRC)
     assert "tensor_product_acc_kernel" in names
+    assert "plain_mul_sum_kernel" in names
     assert names == {f for k in cuda_lib.KERNELS for f in k.functions}
 
 
