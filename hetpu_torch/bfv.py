@@ -26,6 +26,7 @@ from .core.encrypt import Encryptor
 from .core.evaluator import Evaluator
 from .core.keys import GaloisKeys, KeyGenerator, RelinKeys
 from .core.params import HeParams, preset
+from .utils.profiling import phase
 
 
 @dataclass
@@ -46,7 +47,8 @@ class BfvSession:
         public (its keyword arguments are evaluated in that order) — so a
         seed gives its keys bit for bit."""
         if isinstance(params, str):
-            params = preset(params)
+            with phase("context"):
+                params = preset(params)
         ctx = Context(params, device)
         kg = KeyGenerator(ctx, seed=seed)
         rk = kg.create_relin_keys()

@@ -51,7 +51,7 @@ from .ntt import build_tables, ntt_fwd, ntt_fwd_mont, ntt_inv
 from .params import Scheme
 from .rns import fbc_apply, make_fbc
 from .tensor_product import tensor_product
-from ..utils.profiling import span
+from ..utils.profiling import phase, span
 
 
 def _col(xs, dt=np.uint32):
@@ -81,6 +81,7 @@ class BfvScheme:
     """Per-context BFV machinery layered on the shared Context/Evaluator;
     tables and plans live on the context's device."""
 
+    @phase("context")
     def __init__(self, ctx: Context):
         p = ctx.params
         if p.scheme != Scheme.BFV:
@@ -114,7 +115,8 @@ class BfvScheme:
     def _lvl(self, level: int) -> dict:
         d = self._levels.get(level)
         if d is None:
-            d = self._levels[level] = self._make_lvl(level)
+            with phase("context"):
+                d = self._levels[level] = self._make_lvl(level)
         return d
 
     def _make_lvl(self, level: int) -> dict:
@@ -223,6 +225,7 @@ class BfvScheme:
             coeffs = (coeffs + c_f.astype(object) * coef) % self.t
         return coeffs
 
+    @phase("encode")
     def encode(self, values, level: int | None = None) -> Plaintext:
         """Integer vector (≤ N values, mod t) → plaintext whose poly is
         lifted to the Q basis in NTT form for plain ops."""
@@ -296,6 +299,7 @@ class BfvScheme:
         return ct.with_(data=torch.cat([c0.unsqueeze(-3),
                                         ct.data[..., 1:, :, :]], dim=-3))
 
+    @phase("encrypt")
     def encrypt(self, encryptor: Encryptor, pt: Plaintext,
                 seed: bytes | None = None) -> Ciphertext:
         """Public-key (or, without one, symmetric) RLWE encryption of

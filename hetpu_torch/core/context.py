@@ -26,6 +26,7 @@ from .cuda_lib import RowMap
 from .modular import from_u32, mont_constants, shoup_precompute
 from .ntt import NttTables, build_tables
 from .params import HeParams
+from ..utils.profiling import phase
 
 
 def _col(xs, dt=np.uint32) -> np.ndarray:
@@ -106,14 +107,20 @@ class KeySwitchPlan:
 
 class Context:
     """All precomputed state for a parameter set on ``device``.  Per-level
-    views and plans are built on first use and kept on the instance."""
+    views and plans are built on first use and kept on the instance; the
+    constructor and each build are the set-up phase ``context``
+    (``utils.profiling.phase``)."""
 
+    @phase("context")
     def __init__(self, params: HeParams, device="cuda"):
         self.params = params
         self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("Context: no CUDA device; pass device='cpu' "
-                               "for the plain PyTorch paths")
+        if self.device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError("Context: no CUDA device; pass "
+                                   "device='cpu' for the plain PyTorch paths")
+            with phase("card"):        # CUDA's init and context, if first
+                torch.cuda.synchronize(self.device)
         n = params.poly_degree
         self.all_primes: tuple[int, ...] = params.moduli + params.special_moduli
         self.num_data = len(params.moduli)
@@ -128,7 +135,8 @@ class Context:
     def _cached(self, key, build):
         out = self._memo.get(key)
         if out is None:
-            out = self._memo[key] = build()
+            with phase("context"):
+                out = self._memo[key] = build()
         return out
 
     # ------------------------------------------------------------------

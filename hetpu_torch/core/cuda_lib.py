@@ -32,9 +32,13 @@ tables and per-prime constants do not count.  Bytes are added only while
 a torch profiler records (``utils.profiling.profiler_on``), so the
 traced slice's launches carry them and an untraced launch pays one check;
 a capture records its launches' bytes, and a replay adds them under the
-same check.  :func:`reset_launches` clears both, and every counter a
-wrapper module registered (:func:`register_counter`: ``rns.convert_bytes``,
-the precise conversions' bytes by the same rule on either route).
+same check.  :func:`reset_launches` clears both, and every counter
+registered with :func:`register_counter`: ``rns.convert_bytes`` (the
+precise conversions' bytes by the same rule on either route),
+``galois.gather_bytes``, ``fft.mask_bytes`` and the set-up phases' host
+seconds ``utils.profiling.host_s``.  :func:`lib`'s first call, which
+builds or loads the library, is the set-up phase ``card``
+(``utils.profiling.phase``).
 """
 
 from __future__ import annotations
@@ -53,7 +57,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..utils.profiling import profiler_on
+from ..utils.profiling import host_s, phase, profiler_on
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "hetpu_torch"
@@ -163,6 +167,9 @@ def register_counter(counter: dict) -> dict:
     own count (``rns.convert_bytes``); returns it."""
     _counters.append(counter)
     return counter
+
+
+register_counter(host_s)   # the set-up phases' seconds (utils.profiling)
 
 
 def reset_launches() -> None:
@@ -286,14 +293,15 @@ def lib() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            handle = ctypes.CDLL(str(build()))
-            entries = [e for k in KERNELS for e in k.entries.items()]
-            for name, args in entries + list(HELPERS.items()):
-                fn = getattr(handle, name)
-                fn.argtypes = list(args)
-                fn.restype = ctypes.c_int
-            handle.hetpu_error_string.restype = ctypes.c_char_p
-            _lib = handle
+            with phase("card"):
+                handle = ctypes.CDLL(str(build()))
+                entries = [e for k in KERNELS for e in k.entries.items()]
+                for name, args in entries + list(HELPERS.items()):
+                    fn = getattr(handle, name)
+                    fn.argtypes = list(args)
+                    fn.restype = ctypes.c_int
+                handle.hetpu_error_string.restype = ctypes.c_char_p
+                _lib = handle
         return _lib
 
 

@@ -17,6 +17,7 @@ from .context import Context
 from .modular import from_u32, shoup_companion
 from .ntt import ntt_fwd
 from .params import Scheme
+from ..utils.profiling import phase
 
 
 class CkksEncoder:
@@ -75,6 +76,7 @@ class CkksEncoder:
         return v[self.slot_j]
 
     # ------------------------------------------------------------------
+    @phase("encode")
     def encode(self, values, level: int | None = None,
                scale: float | None = None) -> Plaintext:
         """Encode complex values into an NTT-domain plaintext with Shoup

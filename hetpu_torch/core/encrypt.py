@@ -17,6 +17,7 @@ from .encoding import CkksEncoder
 from .keys import PublicKey, SecretKey
 from .modular import from_u32, mod_add, mod_neg, mont_mul, shoup_mul, to_u32
 from .ntt import ntt_fwd_mont, ntt_inv
+from ..utils.profiling import phase
 
 
 class Encryptor:
@@ -36,6 +37,7 @@ class Encryptor:
         return from_u32(rnd.signed_to_rns(sampler(seed, domain, n), q),
                         self.ctx.device)
 
+    @phase("encrypt")
     def encrypt(self, pt: Plaintext, seed: bytes | None = None) -> Ciphertext:
         """Public-key encryption: (b·u + e0 + m, a·u + e1)."""
         if self.pk is None:
@@ -55,6 +57,7 @@ class Encryptor:
         return Ciphertext(data=torch.stack([c0, c1]), level=lvl,
                           scale=pt.scale)
 
+    @phase("encrypt")
     def encrypt_symmetric(self, pt: Plaintext,
                           seed: bytes | None = None) -> Ciphertext:
         """Secret-key encryption: (-(a·s) + e + m, a) with `a` expanded from

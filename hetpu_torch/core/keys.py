@@ -29,6 +29,7 @@ from .context import Context
 from .modular import (from_u32, mod_add, mod_neg, mont_mul, shoup_companion,
                       shoup_mul)
 from .ntt import ntt_fwd_mont
+from ..utils.profiling import phase
 
 
 @dataclass(frozen=True)
@@ -101,6 +102,7 @@ class KeyGenerator:
     Every draw takes the next domain tag of the seed's stream, in the
     reference's order: secret, then whatever keys are created in turn."""
 
+    @phase("keys")
     def __init__(self, ctx: Context, seed: bytes | None = None):
         self.ctx = ctx
         self.seed = seed if seed is not None else rnd.new_seed()
@@ -139,6 +141,7 @@ class KeyGenerator:
         return from_u32(a, self.ctx.device)
 
     # ------------------------------------------------------------------
+    @phase("keys")
     def create_public_key(self) -> PublicKey:
         ctx = self.ctx
         n = ctx.params.poly_degree
@@ -179,6 +182,7 @@ class KeyGenerator:
         k = torch.stack([b, a], dim=1)
         return KSwitchKey(data=k, shoup=shoup_companion(k, tabs.q))
 
+    @phase("keys")
     def create_relin_keys(self, count: int = 1) -> RelinKeys:
         """Keys for s² → s and, with ``count`` > 1, s³ … s^{count+1}, drawn
         in that order."""
@@ -191,6 +195,7 @@ class KeyGenerator:
             keys.append(self._kswitch_key(s_pow))
         return RelinKeys(key=keys[0], more=tuple(keys[1:]))
 
+    @phase("keys")
     def create_galois_keys(self, steps=None) -> GaloisKeys:
         """Keys for slot rotations.  Default: ± all powers of two plus
         conjugation (the conjugation key is always included)."""

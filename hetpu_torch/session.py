@@ -24,6 +24,7 @@ from .core.encrypt import Decryptor, Encryptor
 from .core.evaluator import Evaluator
 from .core.keys import GaloisKeys, KeyGenerator, RelinKeys
 from .core.params import HeParams, preset
+from .utils.profiling import phase
 
 
 @dataclass
@@ -60,7 +61,8 @@ class Session:
         """Keys in the reference's order (public, relin, galois), so a
         seed gives the reference's keys bit for bit."""
         if isinstance(params, str):
-            params = preset(params)
+            with phase("context"):
+                params = preset(params)
         ctx = Context(params, device)
         kg = KeyGenerator(ctx, seed=seed)
         pk = kg.create_public_key()

@@ -17,6 +17,18 @@ Counterpart of ``hetpu/utils/profiling.py``.
   context, so an untraced call pays one check a span.  Nothing else turns
   it on or off.  The spans land in the profiler's Chrome trace, on its
   clock, which CUPTI aligns with the device's kernels.
+* ``phase(name)`` — a set-up phase: its self time on ``time.perf_counter``
+  added to :data:`host_s` (phase → seconds), with or without a profiler;
+  it opens no span.  Self time is the phase's wall time less that of the
+  phases opened inside it (each thread keeps its own stack of open
+  phases), so a plan built inside ``encrypt`` counts once, under
+  ``context``.  The program opens ``card`` (the kernel library's build
+  and load, the first use of the card), ``context`` (a preset's prime
+  search, a context's tables, every plan built on a miss of
+  ``Context._cached`` or of ``BfvScheme``'s levels), ``keys``, ``encode``
+  and ``encrypt``; an evaluator's call opens one only where it builds a
+  plan, its first.  ``core.cuda_lib.reset_launches`` clears
+  :data:`host_s`.
 * ``stage_device_us(events, steps)`` — device µs a step of a Chrome
   trace's kernels, copies and sets by the innermost ``hetpu/`` span open
   on the host when each was launched (``"none"`` outside every stage).
@@ -27,6 +39,7 @@ from __future__ import annotations
 import contextlib
 import os
 import tempfile
+import threading
 import time
 from bisect import bisect_right
 
@@ -36,6 +49,9 @@ PREFIX = "hetpu/"
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 _OFF = contextlib.nullcontext()
 profiler_on = torch._C._autograd._profiler_enabled
+host_s: dict = {}          # phase → self seconds on the host clock (phase)
+_host_lock = threading.Lock()
+_open = threading.local()  # .stack: the inner phases' seconds, per open one
 
 
 def span(name: str):
@@ -44,6 +60,24 @@ def span(name: str):
     if profiler_on():
         return torch.profiler.record_function(PREFIX + name)
     return _OFF
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    """Add the block's self time (its wall time less that of the phases
+    opened inside it) to ``host_s[name]``; also a decorator."""
+    stack = _open.__dict__.setdefault("stack", [])
+    stack.append(0.0)
+    t = time.perf_counter()
+    try:
+        yield
+    finally:
+        wall = time.perf_counter() - t
+        self_s = wall - stack.pop()
+        with _host_lock:
+            host_s[name] = host_s.get(name, 0.0) + self_s
+        if stack:
+            stack[-1] += wall
 
 
 def stage_device_us(events: list, steps: int = 1) -> dict:
